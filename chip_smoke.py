@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (jxl_tiny_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero at once):
+  1. device   require CUDA; print the card's name and power limit
+  2. build    compile every kernel in jxl_tiny_tpu_torch/csrc (nvcc, parallel)
+  3. kernels  feed each kernel the real tensors of the port's own path on
+              testdata/photo8mp.pfm (3840x2160, 135 groups) and hold its
+              output against its plain torch version (exact); time kernel,
+              plain version, a one-call torch equivalent where one exists,
+              and the bytes/operations bound
+  4. encode   the 8 MP encode (two-pass, fixed 8x8 blocks) through the
+              public entry point: every kernel must have launched, and the
+              bytes must equal the same encode through the plain versions;
+              then photo256 / gradient512 sizes against the JAX package's
+              CPU references
+The line before the last is the kernels' JSON record; the last line is the
+result JSON. Imports nothing of JAX or of the JAX package.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+DIST = 1.0
+# Sizes of the JAX package's encode_image_device(img, 1.0,
+# config=EncoderConfig(optimize_block_sizes=False)) on the CPU (XLA:CPU,
+# Pallas in interpret mode); the port's CPU path reproduces them byte for
+# byte (tests/test_torch_encode.py).
+JAX_CPU_SIZES = {"photo256": 3931, "gradient512": 13484}
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, reps, warm=2):
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes, nops):
+    t_b = nbytes / MEM_BYTES_PER_S * 1e3
+    t_o = nops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def max_abs_err(a, b):
+    import torch
+
+    if a.dtype.is_floating_point:
+        d = (a.double() - b.double()).abs()
+        return float(torch.nan_to_num(d, nan=float("inf")).max())
+    return float((a.long() - b.long()).abs().max())
+
+
+def compare(name, outs_k, outs_p):
+    """Exact equality of kernel and plain outputs (bitwise for floats)."""
+    import torch
+
+    err, bad = 0.0, 0
+    for k, p in zip(outs_k, outs_p):
+        if k.shape != p.shape or k.dtype != p.dtype:
+            fail(f"{name}: kernel output {k.dtype}{tuple(k.shape)} vs plain "
+                 f"{p.dtype}{tuple(p.shape)}")
+        if k.dtype.is_floating_point:
+            same = k.view(torch.int32) == p.view(torch.int32)
+        else:
+            same = k == p
+        bad += int((~same).sum())
+        err = max(err, max_abs_err(k, p))
+    log(f"  {name}: mismatches {bad}, max_abs_err {err}")
+    if bad:
+        fail(f"{name}: kernel disagrees with its plain version in {bad} elements")
+    return err
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, "jxl_tiny_tpu_torch")):
+        fail("jxl_tiny_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
+    sys.path.insert(0, HERE)
+    import torch
+
+    # -- 1. device ---------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} card(s)")
+    log(card)
+
+    from jxl_tiny_tpu_torch.ops import _build
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.time()
+    libs = _build.build_all()
+    log(f"build: {len(libs)} libraries ({', '.join(sorted(libs))}) in "
+        f"{time.time() - t0:.1f} s")
+
+    from jxl_tiny_tpu_torch.common import EncoderConfig, compute_distance_params
+    from jxl_tiny_tpu_torch.encoder import encode_image_device
+    from jxl_tiny_tpu_torch.io.pfm import read_pfm
+    from jxl_tiny_tpu_torch.ops import aq_kernel as AQ
+    from jxl_tiny_tpu_torch.ops import pack_kernels as PK
+    from jxl_tiny_tpu_torch.ops import pipeline as PL
+    from jxl_tiny_tpu_torch.ops import quantize_kernel as QK
+    from jxl_tiny_tpu_torch.ops import tokenize_kernel as TK
+    from jxl_tiny_tpu_torch.ops.dct import dct2d_8x8
+    from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
+
+    dev = torch.device("cuda")
+    tables = tables_from_numpy(numpy_tables(), dev)
+    cfg = EncoderConfig(optimize_block_sizes=False)
+    img8 = read_pfm(os.path.join(HERE, "testdata", "photo8mp.pfm"))
+    h, w = img8.shape[1:]
+    mp = h * w / 1e6
+    distp = compute_distance_params(DIST)
+    rec = {}
+
+    def record(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
+               library_ms):
+        rec[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        )
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+
+    # -- 3. kernels at the main path's shapes --------------------------------
+    log("kernels: photo8mp, the port's own upstream tensors")
+    up = torch.from_numpy(img8.astype(np.float16)).to(dev)
+    groups = PL.extract_groups_device(up)
+    g = groups.shape[0]
+    xyb = PL.to_xyb(groups)
+
+    # AQ field.
+    consts, color = AQ.aq_constants(distp.distance)
+    kv = torch.from_numpy(consts).to(dev)
+    outs_k = AQ.aq_field(xyb, distp.distance)
+    outs_p = AQ.aq_field_plain(xyb, consts, color)
+    err = compare("aq_field", outs_k, outs_p)
+    ms = cuda_time_ms(lambda: AQ.aq_field(xyb, distp.distance), 20)
+    pms = cuda_time_ms(lambda: AQ.aq_field_plain(xyb, consts, color), 3, 1)
+    npx = g * 256 * 256
+    record("aq_field", "jxl_tiny_tpu_torch/csrc/aq.cu",
+           "jxl_tiny_tpu/ops/aq_kernel.py:89", err, ms, pms,
+           *bound(xyb.numel() * 4 + 3 * g * 1024 * 4 + kv.numel() * 4, npx * 150),
+           None)
+
+    # Quantize.
+    _, _, raw_qf = AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)
+    blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
+    coef8 = dct2d_8x8(blocks8, tables.dct8)
+    yb = torch.tensor([-(-min(256, h - gy * 256) // 8) for gy in range(-(-h // 256))
+                       for _ in range(-(-w // 256))], device=dev)
+    xb = torch.tensor([-(-min(256, w - gx * 256) // 8) for _ in range(-(-h // 256))
+                       for gx in range(-(-w // 256))], device=dev)
+    ar = torch.arange(32, device=dev)
+    valid = (ar[None, :, None] < yb[:, None, None]) & (ar[None, None, :] < xb[:, None, None])
+    ytox, ytob = PL.compute_cmap(coef8, valid)
+    strategy = torch.zeros((g, 32, 32), dtype=torch.int32, device=dev)
+    is_first = torch.ones((g, 32, 32), dtype=torch.bool, device=dev)
+    coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
+    coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
+    icf = float(np.float32(1.0 / 84))
+    fac_x = (ytox.float().repeat_interleave(8, 1).repeat_interleave(8, 2) * icf).contiguous()
+    fac_b = (1.0 + ytob.float().repeat_interleave(8, 1).repeat_interleave(8, 2) * icf).contiguous()
+    c8 = coef8.reshape(g, 3, 32, 32, 64).contiguous()
+    q_args = (c8, coef_v, coef_h, strategy, raw_qf.contiguous(), fac_x, fac_b,
+              tables, distp.scale, distp.scale_dc, distp.x_qm_mul)
+    outs_k = QK.quantize_cells(*q_args)
+    outs_p = QK.quantize_cells_plain(*q_args)
+    err = compare("quantize_cells", outs_k, outs_p)
+    ms = cuda_time_ms(lambda: QK.quantize_cells(*q_args), 20)
+    pms = cuda_time_ms(lambda: QK.quantize_cells_plain(*q_args), 3, 1)
+    cells = g * 1024
+    q_bytes = (c8.numel() * 4 + 4 * cells * 4  # DCT8 coefs + per-cell maps
+               + cells * 384 * 4 + cells * 3 * 4 * 4)  # ordered + nz/lastnz/qdc
+    record("quantize_cells", "jxl_tiny_tpu_torch/csrc/quantize.cu",
+           "jxl_tiny_tpu/ops/quantize_kernel.py:40", err, ms, pms,
+           *bound(q_bytes, cells * 384 * 25), None)
+
+    # Tokenize (inputs through the plain quantizer's maps: same values).
+    m = PL.encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
+                         ytob, distp.scale, distp.scale_dc, distp.x_qm_mul, tables,
+                         kernels=True)
+    first = is_first & valid
+    shp = m["nzeros_total"].shape
+
+    def em(a):
+        return a[:, [1, 0, 2]].permute(0, 2, 3, 1)
+
+    cov_b = m["covered"][:, None].expand(shp)
+    first_b = first[:, None].expand(shp)
+    meta = TK.pack_row_meta(em(cov_b).int(), em(m["nzeros_total"]).int(),
+                            em(m["block_ctx"]).int(), em(m["nzero_ctx"]).int(),
+                            em(m["prev_init"]).int(), em(first_b)).reshape(-1).contiguous()
+    x = m["ordered"].reshape(-1, 128)
+    tok_k = TK.tokenize_rows(x, meta, tables)
+    tok_p = TK.tokenize_rows_plain(x, meta, tables.freq_tab, tables.nnz_thresh0)
+    err = compare("tokenize_rows", [tok_k], [tok_p])
+    ms = cuda_time_ms(lambda: TK.tokenize_rows(x, meta, tables), 20)
+    pms = cuda_time_ms(lambda: TK.tokenize_rows_plain(x, meta, tables.freq_tab,
+                                                     tables.nnz_thresh0), 3, 1)
+    n = x.shape[0]
+    record("tokenize_rows", "jxl_tiny_tpu_torch/csrc/tokenize.cu",
+           "jxl_tiny_tpu/ops/tokenize_kernel.py:108", err, ms, pms,
+           *bound(n * 128 * 4 * 2 + n * 4, n * 128 * 30), None)
+
+    # Row compaction (program A's token stream).
+    count_em = torch.where(em(first_b), 1 + torch.clamp_min(
+        em(m["lastnz"]) - em(cov_b) + 1, 0), 0).to(torch.int32)
+    rows_tok = tok_k.reshape(g, -1, 128)
+    cnt = count_em.reshape(g, -1).contiguous()
+    start = torch.cumsum(cnt, 1, dtype=torch.int64) - cnt
+    total_max = int((start[:, -1] + cnt[:, -1]).max())
+    cap = next(c for c in (32768, 65536, 131072, 262144) if total_max <= c)
+    s_k = PK.compact_rows(rows_tok, cnt, start, cap)
+    s_p = PK.compact_rows_plain(rows_tok, cnt, start, cap)
+    err = compare("compact_rows", [s_k], [s_p])
+    lane = torch.arange(128, device=dev)
+    pos = start[..., None] + lane
+    msk = (lane < cnt[..., None]) & (pos < cap)
+    gi = torch.arange(g, device=dev)[:, None, None].expand_as(pos)
+    idx = (gi[msk], pos[msk])
+    vals = rows_tok[msk]
+    lib_out = torch.zeros((g, cap + 128), dtype=torch.int32, device=dev)
+    if not torch.equal(lib_out.index_put_(idx, vals), s_k):
+        fail("compact_rows: the index_put_ yardstick computes another stream")
+    ms = cuda_time_ms(lambda: PK.compact_rows(rows_tok, cnt, start, cap), 20)
+    pms = cuda_time_ms(lambda: PK.compact_rows_plain(rows_tok, cnt, start, cap), 3, 1)
+    lms = cuda_time_ms(lambda: lib_out.index_put_(idx, vals), 20)
+    ntok = int(cnt.sum())
+    record("compact_rows", "jxl_tiny_tpu_torch/csrc/compact.cu",
+           "jxl_tiny_tpu/ops/pack_kernels.py:144", err, ms, pms,
+           *bound(cnt.numel() * 12 + ntok * 4 + g * (cap + 128) * 4, ntok * 4),
+           lms)
+
+    # Section copy (program B's AC sections, first code pass).
+    stream = s_k[:, :cap].contiguous()
+    totals = start[:, -1] + cnt[:, -1]
+    hist = PK.hist_base64(stream, totals).cpu().numpy()
+    from jxl_tiny_tpu_torch.entropy.entropy_write import build_ac_device_code
+
+    _, d_table = build_ac_device_code(hist, PK.ac_base64_map())
+    d_table = torch.from_numpy(d_table).to(dev)
+    data, nbits = PK.token_data_bits(stream, totals, d_table)
+    ends = torch.cumsum(nbits, 1)
+    ow = 8192
+    need = int((ends[:, -1].max() + 31) // 32)
+    while need > PK.var_safe_words(ow):
+        ow = {8192: 32768, 32768: 131072}[ow]
+    packed = PK.bitpack_groups_words(data, nbits, ends - nbits, ow)
+    bits = ends[:, -1]
+    nblk = (bits + 4095) // 4096
+    offs = torch.cumsum(nblk * 128, 0) - nblk * 128
+    wcap = min(1 << int(g * ow).bit_length(), 2 * 1024 * 1024)
+    b_k = PK.copy_sections(packed, nblk, offs, wcap)
+    b_p = PK.copy_sections_plain(packed, nblk, offs, wcap)
+    err = compare("copy_sections", [b_k], [b_p])
+    wi = torch.arange(ow, device=dev)[None, :]
+    dst = offs[:, None] + wi
+    cm = (wi < nblk[:, None] * 128) & (dst < wcap)
+    dsel, psel = dst[cm], packed[cm]
+    lbuf = torch.zeros((wcap,), dtype=torch.int32, device=dev)
+    if not torch.equal(lbuf.index_put_((dsel,), psel), b_k):
+        fail("copy_sections: the index_put_ yardstick computes another buffer")
+    ms = cuda_time_ms(lambda: PK.copy_sections(packed, nblk, offs, wcap), 50)
+    pms = cuda_time_ms(lambda: PK.copy_sections_plain(packed, nblk, offs, wcap), 5, 1)
+    lms = cuda_time_ms(lambda: lbuf.index_put_((dsel,), psel), 50)
+    ncopy = int(cm.sum())
+    record("copy_sections", "jxl_tiny_tpu_torch/csrc/compact.cu",
+           "jxl_tiny_tpu/ops/pack_kernels.py:880", err, ms, pms,
+           *bound(g * 16 + ncopy * 4 + wcap * 4, 0), lms)
+    del (groups, xyb, coef8, c8, coef_v, coef_h, m, x, tok_k, tok_p, rows_tok,
+         s_k, s_p, outs_k, outs_p, pos, msk, gi, idx, vals, lib_out, data, nbits)
+    torch.cuda.empty_cache()
+
+    # -- 4. the 8 MP encode through the public entry point ------------------
+    wrappers = {
+        "aq_field": AQ.aq_field, "quantize_cells": QK.quantize_cells,
+        "tokenize_rows": TK.tokenize_rows, "compact_rows": PK.compact_rows,
+        "copy_sections": PK.copy_sections,
+    }
+    for wr in wrappers.values():
+        wr.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    data_k = encode_image_device(img8, DIST, config=cfg)
+    t_first = time.time() - t0
+    for name, wr in wrappers.items():
+        rec[name]["launches"] = wr.launches
+    log(f"encode photo8mp: {len(data_k)} bytes, first call {t_first:.3f} s; "
+        f"launches {json.dumps({k: v['launches'] for k, v in rec.items()})}")
+    for name, r in rec.items():
+        if not r["launches"]:
+            fail(f"{name}: no launch on the main path")
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        d = encode_image_device(img8, DIST, config=cfg)
+        walls.append(time.time() - t0)
+        if d != data_k:
+            fail("photo8mp: repeated encodes differ")
+    wall = statistics.median(walls)
+
+    from jxl_tiny_tpu_torch.encoder import DeviceEncodeJob
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # Where the wall time goes: the job's stages on the host clock, each
+    # ending in a synchronize.
+    up16, t_conv = synced_ms(lambda: img8.astype(np.float16))
+    _, t_h2d = synced_ms(lambda: torch.from_numpy(up16).to(dev))
+    job, t_init = synced_ms(lambda: DeviceEncodeJob(img8, DIST, config=cfg))
+    _, t_pack = synced_ms(job.pack)
+    _, t_fetch = synced_ms(job._fetch_sections)
+    data_s, t_asm = synced_ms(job.result)
+    if data_s != data_k:
+        fail("photo8mp: staged job differs from encode_image_device")
+    prog_a = cuda_time_ms(lambda: job._run_a(job.cap), 3, 1)
+    prog_b = cuda_time_ms(job._dispatch_b, 3, 1)
+    log(f"encode photo8mp ({w}x{h}, {mp:.2f} MP, d={DIST}, 8x8 blocks): "
+        f"{len(data_k)} bytes, warm wall median of 3 {wall * 1e3:.1f} ms "
+        f"({walls}), {mp / wall:.2f} MP/s; program A {prog_a:.3f} ms, "
+        f"program B {prog_b:.3f} ms (CUDA events) [{card}]")
+    log(f"stages photo8mp (host clock, synced): f32->f16 {t_conv:.1f} ms, "
+        f"f16 upload {t_h2d:.1f} ms; job init (conversion + upload + tables + "
+        f"program A) {t_init:.1f} ms; pack (totals/hists read, entropy codes, "
+        f"program B) {t_pack:.1f} ms; fetch (section sizes, capacity retries, "
+        f"words read) {t_fetch:.1f} ms; assembly {t_asm:.1f} ms; final "
+        f"cap {job.cap} ow {job.ow} ow_dc {job._ow_dc} [{card}]")
+
+    data_p = encode_image_device(img8, DIST, config=cfg, kernels=False)
+    if data_p != data_k:
+        fail(f"photo8mp: kernel encode ({len(data_k)} B) differs from the plain "
+             f"versions' encode ({len(data_p)} B)")
+    log("encode photo8mp: bytes equal to the plain-version encode on the card")
+
+    for name, ref in JAX_CPU_SIZES.items():
+        img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+        n_b = len(encode_image_device(img, DIST, config=cfg))
+        dev_pct = 100.0 * (n_b - ref) / ref
+        log(f"encode {name}: {n_b} bytes vs JAX-CPU {ref} ({dev_pct:+.3f}%)")
+        if abs(n_b - ref) > 0.005 * ref:
+            fail(f"{name}: size {n_b} not within 0.5% of {ref}")
+
+    print(json.dumps({"kernels": list(rec.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

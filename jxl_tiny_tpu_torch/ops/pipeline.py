@@ -1,0 +1,320 @@
+"""Program A of the two-pass encode, in torch: whole image -> the device
+resident token stream, its base-64 histograms, the DC-section layout and
+the packed per-group host maps.
+
+Counterpart of the JAX package's ops/pipeline_jax.py (analyze_image_packed
+and the stages it runs) for the configuration without the AC-strategy
+search (EncoderConfig.optimize_block_sizes=False): every cell is a DCT8,
+so the strategy map is all zeros and every cell is a first cell.
+
+`kernels=True` runs the CUDA kernels (ops/*_kernel.py, ops/pack_kernels)
+on CUDA tensors; `kernels=False` runs their plain torch versions instead,
+which is how chip_smoke.py checks the whole encode against them. On CPU
+tensors the kernel wrappers take the plain versions anyway.
+"""
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import constants as C
+from ..common import div_ceil
+from . import dc_kernels as DK
+from .aq_kernel import adaptive_quant_field
+from .dct import dct2d_8x8
+from .pack_kernels import base64_nz, compact_stream, hist_base64
+from .quantize_kernel import quantize_cells, quantize_cells_plain, round_away
+from .tokenize_kernel import tokenize_cells
+
+F32 = np.float32
+_EMIT_CHAN = [1, 0, 2]  # emission channel order Y, X, B
+
+
+def extract_groups_device(image):
+    """[3, H, W] -> [G, 3, 256, 256] f32 edge-replicated group tiles
+    (CopyAndPadImage, enc_frame.cc:597-617).
+
+    uint8 input is sRGB-encoded and linearized here (IEC 61966-2-1 EOTF);
+    float16 / float32 input is linear and converted to float32."""
+    _, h, w = image.shape
+    gh = div_ceil(h, 256) * 256
+    gw = div_ceil(w, 256) * 256
+    if image.dtype == torch.uint8:
+        x = image.to(torch.float32) * float(F32(1.0 / 255.0))
+        lin = torch.exp(
+            2.4 * torch.log(
+                torch.clamp_min((x + float(F32(0.055))) * float(F32(1.0 / 1.055)), 1e-7)
+            )
+        )
+        image = torch.where(x <= float(F32(0.04045)), x * float(F32(1.0 / 12.92)), lin)
+    else:
+        image = image.to(torch.float32)
+    img = F.pad(image[None], (0, gw - w, 0, gh - h), mode="replicate")[0]
+    img = img.reshape(3, gh // 256, 256, gw // 256, 256)
+    return img.permute(1, 3, 0, 2, 4).reshape(-1, 3, 256, 256).contiguous()
+
+
+def _cbrt(v):
+    # Cube root through float64 pow, rounded once to float32: torch has no
+    # cbrt, and a float32 pow(v, 1/3) misrounds far more often.
+    return torch.pow(v.to(torch.float64), 1.0 / 3.0).to(torch.float32)
+
+
+def to_xyb(groups):
+    """[G, 3, 256, 256] linear sRGB -> XYB (enc_xyb.cc:44-81)."""
+    m = C.OPSIN_MATRIX
+    r, g_, b = groups[:, 0], groups[:, 1], groups[:, 2]
+    bias = float(C.OPSIN_BIAS)
+    mixed = [
+        float(m[i, 0]) * r + float(m[i, 1]) * g_ + float(m[i, 2]) * b + bias
+        for i in range(3)
+    ]
+    nb = float(C.NEG_BIAS_CBRT)
+    tm = [_cbrt(torch.clamp_min(v, 0.0)) + nb for v in mixed]
+    return torch.stack(
+        [0.5 * (tm[0] - tm[1]), 0.5 * (tm[0] + tm[1]), tm[2]], dim=1
+    ).contiguous()
+
+
+def compute_cmap(coef8, valid_blocks):
+    """coef8: [G,3,32,32,8,8]; valid_blocks: [G,32,32] bool -> ytox/ytob
+    [G,4,4] i32: least-squares chroma-from-luma factors per 64x64 tile
+    (enc_chroma_from_luma.cc). The tile sums accumulate in float64 and
+    round once to float32."""
+    g = coef8.shape[0]
+    qm_x = torch.from_numpy(C.QUANT_DCT8[0]).to(coef8.device)
+    qm_b = torch.from_numpy(C.QUANT_DCT8[2]).to(coef8.device)
+    vb = valid_blocks[:, :, :, None, None].to(torch.float32)
+    m_x = coef8[:, 1] * qm_x * vb
+    s_x = coef8[:, 0] * qm_x * vb
+    m_b = coef8[:, 1] * qm_b * vb
+    s_b = coef8[:, 2] * qm_b * vb
+
+    def tile_sum(a):  # [G,32,32,8,8] -> [G,4,4]
+        return a.to(torch.float64).reshape(g, 4, 8, 4, 8, 64).sum(dim=(2, 4, 5)).to(
+            torch.float32
+        )
+
+    n = valid_blocks.reshape(g, 4, 8, 4, 8).sum(dim=(2, 4)).to(torch.float32) * 64.0
+
+    def fit(m, s, base):
+        a = float(C.INV_COLOR_FACTOR) * m
+        b = base * m - s
+        ca = tile_sum(a * a)
+        cb = tile_sum(a * b)
+        x = -cb / (ca + n * float(F32(1e-3 * 0.5)) + float(F32(1e-30)))
+        return torch.clamp(round_away(x), -128, 127).to(torch.int32)
+
+    return fit(m_x, s_x, 0.0), fit(m_b, s_b, 1.0)
+
+
+def _scatter_covered(values, strat, is_first):
+    """values: [G,yb,xb,2] per-first-cell -> [G,yb,xb] cell map."""
+    vfirst = is_first & (strat == C.DCT16X8)
+    hfirst = is_first & (strat == C.DCT8X16)
+    out = torch.where(is_first, values[..., 0], 0)
+    out = torch.where(DK.shift0(vfirst, -1, -2), DK.shift0(values[..., 1], -1, -2), out)
+    out = torch.where(DK.shift0(hfirst, -1, -1), DK.shift0(values[..., 1], -1, -1), out)
+    return out
+
+
+def encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
+                   ytob, scale, scale_dc, x_qm_mul, tables, kernels):
+    """Quantize kernel + the neighbour-dependent context math on the
+    [G,3,32,32] maps (the JAX package's encode_middle)."""
+    fac_x = (
+        ytox.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2)
+        * float(C.INV_COLOR_FACTOR)
+    ).contiguous()
+    fac_b = (
+        1.0 + ytob.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2)
+        * float(C.INV_COLOR_FACTOR)
+    ).contiguous()
+    quant = quantize_cells if kernels else quantize_cells_plain
+    ordered, nzeros_total, qdcp, lastnz = quant(
+        coef8.reshape(coef8.shape[0], 3, 32, 32, 64).contiguous(), coef_v, coef_h,
+        strategy.to(torch.int32).contiguous(), raw_qf.to(torch.int32).contiguous(),
+        fac_x, fac_b, tables, scale, scale_dc, x_qm_mul,
+    )
+    quant_dc = torch.stack(
+        [
+            _scatter_covered(qdcp[:, c].permute(0, 2, 3, 1), strategy, is_first)
+            for c in range(3)
+        ],
+        dim=1,
+    )  # [G,3,32,32]
+    covered = torch.where(strategy == C.DCT8, 1, 2)
+    shifted_nz = -torch.div(
+        -nzeros_total, torch.clamp_min(covered[:, None], 1), rounding_mode="floor"
+    )
+    nz_map = torch.stack(
+        [
+            _scatter_covered(
+                torch.stack([shifted_nz[:, c]] * 2, -1), strategy, is_first
+            )
+            for c in range(3)
+        ],
+        dim=1,
+    )
+    top = DK.shift0(nz_map, -1, -2)
+    left = DK.shift0(nz_map, -1, -1)
+    by_i = torch.arange(32, device=coef8.device)[:, None]
+    bx_i = torch.arange(32, device=coef8.device)[None, :]
+    pred = torch.where(
+        (by_i == 0) & (bx_i == 0),
+        32,
+        torch.where(
+            by_i == 0, left,
+            torch.where(bx_i == 0, top, torch.div(top + left + 1, 2, rounding_mode="floor")),
+        ),
+    )
+    block_ctx = tables.block_ctx_tab[strategy.long()].permute(0, 3, 1, 2)  # [G,3,32,32]
+    nz_bucket = torch.where(
+        pred < 8, pred,
+        torch.where(pred >= 64, 36, 4 + torch.div(pred, 2, rounding_mode="floor")),
+    )
+    nzero_ctx = base64_nz(nz_bucket, block_ctx)
+    size_b = (covered * 64)[:, None]
+    prev_init = (nzeros_total <= (size_b >> 4)).to(torch.int32)
+    return dict(
+        ordered=ordered, nzeros_total=nzeros_total, lastnz=lastnz,
+        covered=covered, block_ctx=block_ctx, nzero_ctx=nzero_ctx,
+        prev_init=prev_init, quant_dc=quant_dc,
+    )
+
+
+def encode_groups_stream(coef8, coef_v, coef_h, strategy, is_first, raw_qf,
+                         ytox, ytob, scale, scale_dc, x_qm_mul, valid, cap,
+                         tables, kernels=True):
+    """Quantize + contexts + tokenize + compaction.
+
+    Returns (stream [G, cap+128] i32, totals [G] i64, quant_dc [G,3,32,32])."""
+    g = coef8.shape[0]
+    first = is_first & valid
+    m = encode_middle(
+        coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox, ytob,
+        scale, scale_dc, x_qm_mul, tables, kernels,
+    )
+    shp = m["nzeros_total"].shape
+    covered_b = m["covered"][:, None].expand(shp)
+    first_b = first[:, None].expand(shp)
+
+    def em(a):  # [G,3,32,32] map -> emission order [G,32,32,3]
+        return a[:, _EMIT_CHAN].permute(0, 2, 3, 1)
+
+    tokens_em = tokenize_cells(
+        m["ordered"], em(covered_b), em(m["nzeros_total"]), em(m["block_ctx"]),
+        em(m["nzero_ctx"]), em(m["prev_init"]), em(first_b), tables, kernels,
+    )
+    # Per-cell token counts from the quantizer's lastnz: the last valid
+    # coefficient token sits at slot lastnz - covered + 1.
+    count_em = torch.where(
+        em(first_b),
+        1 + torch.clamp_min(em(m["lastnz"]) - em(covered_b) + 1, 0),
+        0,
+    ).to(torch.int32)
+    stream, totals = compact_stream(
+        tokens_em.reshape(g, -1, 128), count_em.reshape(g, -1), cap, kernels
+    )
+    return stream, totals, m["quant_dc"]
+
+
+def pack_meta_u8(quant_dc, raw_qf, strategy, is_first, ytox, ytob):
+    """The small per-group host maps packed into one u8 buffer [G, 8224]
+    (layout of the JAX package's _pack_meta_u8)."""
+    g = quant_dc.shape[0]
+    qdc = quant_dc.to(torch.int16).contiguous().view(torch.uint8).reshape(g, -1)
+    qf = raw_qf.to(torch.uint8).reshape(g, -1)
+    sf = (strategy.to(torch.uint8) | (is_first.to(torch.uint8) << 7)).reshape(g, -1)
+    yx = ytox.to(torch.int8).contiguous().view(torch.uint8).reshape(g, -1)
+    yb_ = ytob.to(torch.int8).contiguous().view(torch.uint8).reshape(g, -1)
+    return torch.cat([qdc, qf, sf, yx, yb_], dim=1)
+
+
+def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
+                          cfl=True, kernels=True):
+    """Group-batch core of program A (fixed 8x8 blocks). Returns dict of
+    stream, totals, hist and meta, plus the maps for the DC layout."""
+    g = groups.shape[0]
+    dev = groups.device
+    groups = groups.to(torch.float32)
+    xyb = to_xyb(groups)
+    # qf and masking feed only the AC-strategy search (not in this config).
+    _, _, raw_qf = adaptive_quant_field(xyb, distp.distance, distp.inv_scale, kernels)
+    blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
+    coef8 = dct2d_8x8(blocks8, tables.dct8)
+    by_i = torch.arange(32, device=dev)[:, None]
+    bx_i = torch.arange(32, device=dev)[None, :]
+    valid = (by_i[None] < yb_valid[:, None, None]) & (bx_i[None] < xb_valid[:, None, None])
+    if cfl:
+        ytox, ytob = compute_cmap(coef8, valid)
+    else:
+        ytox = torch.zeros((g, 4, 4), dtype=torch.int32, device=dev)
+        ytob = torch.zeros((g, 4, 4), dtype=torch.int32, device=dev)
+    strategy = torch.zeros((g, 32, 32), dtype=torch.int32, device=dev)
+    is_first = torch.ones((g, 32, 32), dtype=torch.bool, device=dev)
+    # The quantizer's 16x8 / 8x16 inputs are never selected with every cell
+    # a DCT8; empty tensors of the right shape keep its contract.
+    coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
+    coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
+    stream, totals, quant_dc = encode_groups_stream(
+        coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox, ytob,
+        distp.scale, distp.scale_dc, distp.x_qm_mul, valid, cap, tables, kernels,
+    )
+    hist = hist_base64(stream[:, :cap], torch.clamp_max(totals, cap))
+    meta = pack_meta_u8(quant_dc, raw_qf, strategy, is_first, ytox, ytob)
+    return dict(
+        stream=stream, totals=totals, hist=hist, meta=meta,
+        _maps=(quant_dc, raw_qf, strategy, is_first, ytox, ytob),
+    )
+
+
+def analyze_image_packed(image, yb_valid, xb_valid, distp, cap, tables,
+                         cfl=True, kernels=True):
+    """Program A: whole image [3, H, W] -> dict(stream [G, cap+128] i32,
+    totals [G] i64, meta [G, 8224] u8, dc_layout [Gd, DC_CAP] i32,
+    hists [2, 64, 64] i64 (AC base-64, DC))."""
+    groups = extract_groups_device(image)
+    out = analyze_groups_packed(
+        groups, yb_valid, xb_valid, distp, cap, tables, cfl, kernels
+    )
+    maps = out.pop("_maps")
+    dc_layout, dchist = dc_layout_from_maps(
+        *maps, ysize=image.shape[-2], xsize=image.shape[-1], tables=tables
+    )
+    out["dc_layout"] = dc_layout
+    out["hists"] = torch.stack([out.pop("hist"), dchist])
+    return out
+
+
+def dc_layout_from_maps(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
+                        ysize, xsize, tables):
+    """Per-group maps -> DC-section layout [Gd, DC_CAP] i32 + DC histogram."""
+    ygr = div_ceil(ysize, 256)
+    xgr = div_ceil(xsize, 256)
+    ygr_p = div_ceil(ygr, 8) * 8
+    xgr_p = div_ceil(xgr, 8) * 8
+
+    def regroup(a, trailing):
+        a = a.reshape((ygr, xgr) + tuple(a.shape[1:]))
+        pad = [0, 0] * (a.dim() - 2) + [0, xgr_p - xgr, 0, ygr_p - ygr]
+        a = F.pad(a, pad)
+        a = a.reshape((ygr_p * xgr_p,) + tuple(a.shape[2:]))
+        return DK.regroup_dc(a, ygr_p, xgr_p, trailing)
+
+    qdc = regroup(quant_dc.to(torch.int64), True)
+    qf = regroup(raw_qf.to(torch.int64), False)
+    st = regroup(strategy.to(torch.int64), False)
+    fi = regroup(is_first.to(torch.int64), False).to(torch.bool)
+    yx = regroup(ytox.to(torch.int64), False)
+    yb_ = regroup(ytob.to(torch.int64), False)
+    geo = DK.dc_group_geometry(ysize, xsize)
+    dev = quant_dc.device
+
+    def t(k):
+        return torch.tensor(geo[k], dtype=torch.int64, device=dev)
+
+    layout = DK.build_dc_layout(
+        qdc, qf, st, fi, yx, yb_, t("ydb"), t("xdb"), t("ty"), t("tx"), t("nb"),
+        tables,
+    )
+    return layout, DK.dc_hist(layout)

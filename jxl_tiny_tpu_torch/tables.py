@@ -1,0 +1,119 @@
+"""The encoder's constant tables as one torch module.
+
+This encoder has no learned weights: its "parameters" are the fixed tables
+the device stages read (quant/dequant/threshold matrices per strategy, scan
+orders, context tables, the DCT matrix, the DC gradient-context steps).
+`numpy_tables()` builds them from the port's own constants; the tests build
+the same dict from the JAX package's module attributes and compare.
+"""
+import numpy as np
+import torch
+from torch import nn
+
+from . import constants as C
+from .ops._ref import dct_matrix, threshold_map
+
+
+def _strategy_tables():
+    qm = np.zeros((3, 3, 128), np.float32)  # [strategy, channel, coeff]
+    dqm = np.zeros((3, 3, 128), np.float32)
+    thr = np.zeros((3, 3, 128), np.float32)
+    qm[C.DCT8, :, :64] = C.QUANT_DCT8.reshape(3, 64)
+    dqm[C.DCT8, :, :64] = C.DEQUANT_DCT8.reshape(3, 64)
+    qm[C.DCT16X8] = qm[C.DCT8X16] = C.QUANT_DCT16.reshape(3, 128)
+    dqm[C.DCT16X8] = dqm[C.DCT8X16] = C.DEQUANT_DCT16.reshape(3, 128)
+    for c in range(3):
+        thr[C.DCT8, c, :64] = threshold_map(c, 1, 1).ravel()
+        thr[C.DCT16X8, c] = threshold_map(c, 1, 2).ravel()
+        thr[C.DCT8X16, c] = threshold_map(c, 2, 1).ravel()
+    order = np.zeros((3, 128), np.int32)
+    order[C.DCT8] = np.concatenate([C.COEFF_ORDER8, 64 + np.arange(64)])
+    order[C.DCT16X8] = order[C.DCT8X16] = C.COEFF_ORDER16
+    return qm, dqm, thr, order
+
+
+def _nnz_ctx_steps():
+    """COEFF_NNZ_CTX as a monotone step function (thresholds, deltas)."""
+    lut = C.COEFF_NNZ_CTX.astype(np.int64).copy()
+    lut[0] = 0  # index 0 is never used (guarded by nzeros_left > 0)
+    deltas = np.diff(lut)
+    idx = np.nonzero(deltas)[0] + 1
+    return idx.astype(np.int32), deltas[idx - 1].astype(np.int32)
+
+
+def _grad_step_tables():
+    """GRADIENT_CTX_LUT (enc_frame.cc:224-285) as two step functions of the
+    clamped gradient distance: ctx = base + the deltas of every threshold
+    the distance reaches."""
+    lut = C.GRADIENT_CTX_LUT.astype(np.int64)
+
+    def steps(side):  # side=+1: lut[512+d], side=-1: lut[512-d]
+        vals = [int(lut[512 + side * d]) for d in range(0, 512)]
+        ths, dls = [], []
+        for d in range(1, 512):
+            if vals[d] != vals[d - 1]:
+                ths.append(d)
+                dls.append(vals[d] - vals[d - 1])
+        return np.array(ths, np.int32), np.array(dls, np.int32), vals[0]
+
+    return steps(+1), steps(-1)
+
+
+def numpy_tables() -> dict:
+    """All tables as numpy arrays, keyed by buffer name."""
+    qm, dqm, thr, order = _strategy_tables()
+    nnz_thresh, nnz_delta = _nnz_ctx_steps()
+    (pos_t, pos_d, base0), (neg_t, neg_d, _) = _grad_step_tables()
+    return dict(
+        qm_tab=qm,
+        dqm_tab=dqm,
+        thr_tab=thr,
+        order_tab=order,
+        # Zig-zag scans as index permutations: ordered[j] = natural[perm[j]].
+        zz_perm8=np.concatenate([C.COEFF_ORDER8, 64 + np.arange(64)]).astype(
+            np.int32
+        ),
+        zz_perm16=np.asarray(C.COEFF_ORDER16, np.int32),
+        freq_tab=np.stack(
+            [
+                C.COEFF_FREQ_CTX[np.clip(np.arange(128) >> 0, 0, 63)],
+                C.COEFF_FREQ_CTX[np.clip(np.arange(128) >> 1, 0, 63)],
+            ]
+        ).astype(np.int32),  # [covered-1, 128]
+        nnz_thresh=nnz_thresh,
+        nnz_delta=nnz_delta,
+        block_ctx_tab=np.stack(
+            [C.BLOCK_CTX_MAP[c, C.STRATEGY_CODE] for c in range(3)], axis=1
+        ).astype(np.int32),  # [strategy, channel]
+        dct8=dct_matrix(8),
+        grad_pos_t=pos_t,
+        grad_pos_d=pos_d,
+        grad_neg_t=neg_t,
+        grad_neg_d=neg_d,
+        grad_base=np.array([base0], np.int32),
+    )
+
+
+class EncoderTables(nn.Module):
+    """Constant tables as buffers, on one device. Plain host ints that the
+    stages need before any launch are kept as attributes, so reading them
+    never waits on the device."""
+
+    def __init__(self, arrays: dict):
+        super().__init__()
+        for name, arr in arrays.items():
+            self.register_buffer(name, torch.from_numpy(np.array(arr)))
+        self.nnz_thresh0 = int(arrays["nnz_thresh"][0])
+        self.grad_base0 = int(arrays["grad_base"][0])
+        # The tokenizer's one-threshold NNZ context shortcut requires every
+        # step delta to exceed the base-64 q cap (ops.tokenize_kernel).
+        if int(np.min(arrays["nnz_delta"])) <= 5:
+            raise ValueError("NNZ deltas must saturate the q cap")
+
+    @property
+    def device(self):
+        return self.qm_tab.device
+
+
+def tables_from_numpy(arrays: dict, device) -> EncoderTables:
+    return EncoderTables(arrays).to(device)
