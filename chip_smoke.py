@@ -6,16 +6,23 @@
 Phases (any failure exits non-zero at once):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile every kernel in jxl_tiny_tpu_torch/csrc (nvcc, parallel)
-  3. kernels  feed each kernel the real tensors of the port's own path on
-              testdata/photo8mp.pfm (3840x2160, 135 groups) and hold its
-              output against its plain torch version (exact); time kernel,
-              plain version, a one-call torch equivalent where one exists,
-              and the bytes/operations bound
-  4. encode   the 8 MP encode (two-pass, fixed 8x8 blocks) through the
-              public entry point: every kernel must have launched, and the
-              bytes must equal the same encode through the plain versions;
-              then photo256 / gradient512 sizes against the JAX package's
-              CPU references
+  3. kernels  feed each kernel the real tensors of the port's default path
+              on testdata/photo8mp.pfm (3840x2160, 135 groups; real strategy
+              maps and 16x8 / 8x16 coefficient sets) and hold its output
+              against its plain torch version (exact; the quantizer and
+              the tokenizer also on an all-DCT8 map); time kernel, plain
+              version, a one-call torch equivalent where one exists, and
+              the bytes/operations bound. bitpack_groups_var, which no
+              encode path calls, gets program B's real AC tokens and must
+              also equal bitpack_groups_words
+  4. encode   the 8 MP encode at the default configuration through the
+              public entry point: every kernel of the path must have
+              launched, and the bytes must equal the same encode through
+              the plain versions; the same for the one-pass static tier;
+              then bitpack_groups_var driven as program B's AC packer
+              (its own launch count); then the fixed-8x8 configuration on
+              small images, and photo256 / gradient512 sizes at both
+              configurations against the JAX package's CPU references
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -32,12 +39,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 DIST = 1.0
-# Sizes of the JAX package's encode_image_device(img, 1.0,
-# config=EncoderConfig(optimize_block_sizes=False)) on the CPU (XLA:CPU,
-# Pallas in interpret mode); the port's CPU path reproduces them byte for
-# byte (tests/test_torch_encode.py).
-JAX_CPU_SIZES = {"photo256": 3931, "gradient512": 13484}
-
+# Sizes of the JAX package's encode_image_device(img, 1.0, upload_dtype=None)
+# on the CPU (XLA:CPU, Pallas in interpret mode), at the default
+# configuration and with EncoderConfig(optimize_block_sizes=False); the
+# port's CPU path reproduces them byte for byte (tests/test_torch_encode.py).
+JAX_CPU_SIZES = {"photo256": 3426, "gradient512": 11680}
+JAX_CPU_SIZES_8X8 = {"photo256": 3931, "gradient512": 13484}
+# The static tier may cost this much over the two-pass size on photographs
+# (the bound of the JAX package's tests/test_config_tiers.py).
+STATIC_OVERHEAD = 1.06
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -135,13 +145,16 @@ def main():
     from jxl_tiny_tpu_torch.ops import pack_kernels as PK
     from jxl_tiny_tpu_torch.ops import pipeline as PL
     from jxl_tiny_tpu_torch.ops import quantize_kernel as QK
+    from jxl_tiny_tpu_torch.ops import strategy_kernel as SK
     from jxl_tiny_tpu_torch.ops import tokenize_kernel as TK
     from jxl_tiny_tpu_torch.ops.dct import dct2d_8x8
     from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
 
     dev = torch.device("cuda")
     tables = tables_from_numpy(numpy_tables(), dev)
-    cfg = EncoderConfig(optimize_block_sizes=False)
+    cfg = EncoderConfig()
+    cfg_8x8 = EncoderConfig(optimize_block_sizes=False)
+    cfg_static = EncoderConfig(optimize_code=False)
     img8 = read_pfm(os.path.join(HERE, "testdata", "photo8mp.pfm"))
     h, w = img8.shape[1:]
     mp = h * w / 1e6
@@ -160,7 +173,7 @@ def main():
             f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
 
     # -- 3. kernels at the main path's shapes --------------------------------
-    log("kernels: photo8mp, the port's own upstream tensors")
+    log("kernels: photo8mp, the upstream tensors of the port's default path")
     up = torch.from_numpy(img8.astype(np.float16)).to(dev)
     groups = PL.extract_groups_device(up)
     g = groups.shape[0]
@@ -180,8 +193,8 @@ def main():
            *bound(xyb.numel() * 4 + 3 * g * 1024 * 4 + kv.numel() * 4, npx * 150),
            None)
 
-    # Quantize.
-    _, _, raw_qf = AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)
+    # Strategy estimates (kernel E), on the real DCTs and AQ maps.
+    qf, masking, raw_qf = AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)
     blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
     coef8 = dct2d_8x8(blocks8, tables.dct8)
     yb = torch.tensor([-(-min(256, h - gy * 256) // 8) for gy in range(-(-h // 256))
@@ -191,47 +204,84 @@ def main():
     ar = torch.arange(32, device=dev)
     valid = (ar[None, :, None] < yb[:, None, None]) & (ar[None, None, :] < xb[:, None, None])
     ytox, ytob = PL.compute_cmap(coef8, valid)
-    strategy = torch.zeros((g, 32, 32), dtype=torch.int32, device=dev)
-    is_first = torch.ones((g, 32, 32), dtype=torch.bool, device=dev)
-    coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
-    coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
-    icf = float(np.float32(1.0 / 84))
-    fac_x = (ytox.float().repeat_interleave(8, 1).repeat_interleave(8, 2) * icf).contiguous()
-    fac_b = (1.0 + ytob.float().repeat_interleave(8, 1).repeat_interleave(8, 2) * icf).contiguous()
+    e_args = PL.strategy_inputs(coef8, qf, masking, ytox, ytob, tables)
+    slope = min(1.0, distp.distance / 3.0)
+    outs_k = SK.estimate_partials(*e_args, slope)
+    outs_p = SK.estimate_partials_plain(*e_args, slope)
+    err = compare("estimate_partials", outs_k, outs_p)
+    ms = cuda_time_ms(lambda: SK.estimate_partials(*e_args, slope), 20)
+    pms = cuda_time_ms(lambda: SK.estimate_partials_plain(*e_args, slope), 3, 1)
+    e_bytes = sum(a.numel() * 4 for a in e_args) + sum(o.numel() * 4 for o in outs_k)
+    n_coef = sum(a.numel() for a in e_args[:3])
+    record("estimate_partials", "jxl_tiny_tpu_torch/csrc/strategy.cu",
+           "jxl_tiny_tpu/ops/strategy_kernel.py:147", err, ms, pms,
+           *bound(e_bytes, n_coef * 20), None)
+    del outs_p
+
+    # The decisions those estimates lead to: the real strategy maps that
+    # the quantizer, the tokenizer and the compaction are held against.
+    strategy, is_first, coef_v, coef_h = PL.compute_ac_strategy(
+        coef8, qf, masking, ytox, ytob, distp.distance, yb, xb, tables)
+    raw_qf8 = raw_qf  # the field of an all-DCT8 map, before the adjustment
+    raw_qf = PL.adjust_quant_field(strategy, is_first, raw_qf)
+    n_valid = int(valid.sum())
+    share_v = int(((strategy == 1) & valid).sum()) / n_valid
+    share_h = int(((strategy == 2) & valid).sum()) / n_valid
+    log(f"  strategy photo8mp: {100 * share_v:.2f}% of valid cells in 16x8, "
+        f"{100 * share_h:.2f}% in 8x16, {100 * (1 - share_v - share_h):.2f}% in 8x8")
+    if not (share_v > 0.0 and share_h > 0.0):
+        fail("photo8mp: the search chose only one kind of transform")
+
+    # Quantize. On this image the search may leave no cell a DCT8, so the
+    # kernel is also held against its plain version on an all-DCT8 map
+    # over the same coefficients (the fixed-8x8 path's tensors).
+    fac_x, fac_b = PL.cfl_factors(ytox, ytob)
     c8 = coef8.reshape(g, 3, 32, 32, 64).contiguous()
+    all8 = torch.zeros_like(strategy)
+    q8_args = (c8, coef_v, coef_h, all8, raw_qf8.contiguous(), fac_x, fac_b,
+               tables, distp.scale, distp.scale_dc, distp.x_qm_mul)
+    err8 = compare("quantize_cells (all DCT8)", QK.quantize_cells(*q8_args),
+                   QK.quantize_cells_plain(*q8_args))
     q_args = (c8, coef_v, coef_h, strategy, raw_qf.contiguous(), fac_x, fac_b,
               tables, distp.scale, distp.scale_dc, distp.x_qm_mul)
     outs_k = QK.quantize_cells(*q_args)
     outs_p = QK.quantize_cells_plain(*q_args)
-    err = compare("quantize_cells", outs_k, outs_p)
+    err = max(err8, compare("quantize_cells", outs_k, outs_p))
     ms = cuda_time_ms(lambda: QK.quantize_cells(*q_args), 20)
     pms = cuda_time_ms(lambda: QK.quantize_cells_plain(*q_args), 3, 1)
     cells = g * 1024
-    q_bytes = (c8.numel() * 4 + 4 * cells * 4  # DCT8 coefs + per-cell maps
-               + cells * 384 * 4 + cells * 3 * 4 * 4)  # ordered + nz/lastnz/qdc
+    # Each cell needs its strategy's 3 x 64 coefficients (from one of the
+    # three sets) + per-cell maps; ordered + nz/lastnz/qdc go out.
+    q_bytes = (c8.numel() * 4 + 4 * cells * 4
+               + cells * 384 * 4 + cells * 3 * 4 * 4)
     record("quantize_cells", "jxl_tiny_tpu_torch/csrc/quantize.cu",
            "jxl_tiny_tpu/ops/quantize_kernel.py:40", err, ms, pms,
            *bound(q_bytes, cells * 384 * 25), None)
 
-    # Tokenize (inputs through the plain quantizer's maps: same values).
-    m = PL.encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
-                         ytob, distp.scale, distp.scale_dc, distp.x_qm_mul, tables,
-                         kernels=True)
-    first = is_first & valid
-    shp = m["nzeros_total"].shape
-
+    # Tokenize (covered = 1 and 2 rows, from the real maps), and before
+    # that the rows of the all-DCT8 map.
     def em(a):
         return a[:, [1, 0, 2]].permute(0, 2, 3, 1)
 
-    cov_b = m["covered"][:, None].expand(shp)
-    first_b = first[:, None].expand(shp)
-    meta = TK.pack_row_meta(em(cov_b).int(), em(m["nzeros_total"]).int(),
-                            em(m["block_ctx"]).int(), em(m["nzero_ctx"]).int(),
-                            em(m["prev_init"]).int(), em(first_b)).reshape(-1).contiguous()
-    x = m["ordered"].reshape(-1, 128)
+    def token_rows(strat, is_f, rqf):
+        m = PL.encode_middle(coef8, coef_v, coef_h, strat, is_f, rqf, ytox, ytob,
+                             distp.scale, distp.scale_dc, distp.x_qm_mul, tables,
+                             kernels=True)
+        shp = m["nzeros_total"].shape
+        cov_b = m["covered"][:, None].expand(shp)
+        first_b = (is_f & valid)[:, None].expand(shp)
+        meta = TK.pack_row_meta(em(cov_b).int(), em(m["nzeros_total"]).int(),
+                                em(m["block_ctx"]).int(), em(m["nzero_ctx"]).int(),
+                                em(m["prev_init"]).int(), em(first_b)).reshape(-1).contiguous()
+        return m, cov_b, first_b, m["ordered"].reshape(-1, 128), meta
+
+    _, _, _, x, meta = token_rows(all8, torch.ones_like(is_first), raw_qf8)
+    err8 = compare("tokenize_rows (all DCT8)", [TK.tokenize_rows(x, meta, tables)],
+                   [TK.tokenize_rows_plain(x, meta, tables.freq_tab, tables.nnz_thresh0)])
+    m, cov_b, first_b, x, meta = token_rows(strategy, is_first, raw_qf)
     tok_k = TK.tokenize_rows(x, meta, tables)
     tok_p = TK.tokenize_rows_plain(x, meta, tables.freq_tab, tables.nnz_thresh0)
-    err = compare("tokenize_rows", [tok_k], [tok_p])
+    err = max(err8, compare("tokenize_rows", [tok_k], [tok_p]))
     ms = cuda_time_ms(lambda: TK.tokenize_rows(x, meta, tables), 20)
     pms = cuda_time_ms(lambda: TK.tokenize_rows_plain(x, meta, tables.freq_tab,
                                                      tables.nnz_thresh0), 3, 1)
@@ -305,29 +355,54 @@ def main():
     record("copy_sections", "jxl_tiny_tpu_torch/csrc/compact.cu",
            "jxl_tiny_tpu/ops/pack_kernels.py:880", err, ms, pms,
            *bound(g * 16 + ncopy * 4 + wcap * 4, 0), lms)
+
+    # Token bit packer on the same AC tokens (off every encode path).
+    bpos = ends - nbits
+    w_k = PK.bitpack_groups_var(data, nbits, bpos, ow)
+    w_p = PK.bitpack_groups_var_plain(data, nbits, bpos, ow)
+    err = compare("bitpack_groups_var", [w_k], [w_p])
+    if not torch.equal(w_k, packed):
+        fail("bitpack_groups_var: words differ from bitpack_groups_words")
+    ms = cuda_time_ms(lambda: PK.bitpack_groups_var(data, nbits, bpos, ow), 20)
+    pms = cuda_time_ms(lambda: PK.bitpack_groups_var_plain(data, nbits, bpos, ow), 3, 1)
+    wms = cuda_time_ms(lambda: PK.bitpack_groups_words(data, nbits, bpos, ow), 3, 1)
+    log(f"  bitpack_groups_words on the same tokens (the encode's packer: "
+        f"torch passes + compact_rows): {wms:.4f} ms [{card}]")
+    record("bitpack_groups_var", "jxl_tiny_tpu_torch/csrc/bitpack.cu",
+           "jxl_tiny_tpu/ops/pack_kernels.py:735", err, ms, pms,
+           *bound(3 * data.numel() * 4 + w_k.numel() * 4, data.numel() * 6), None)
+    ac_stream, ac_totals, ac_table = stream, totals, d_table
     del (groups, xyb, coef8, c8, coef_v, coef_h, m, x, tok_k, tok_p, rows_tok,
-         s_k, s_p, outs_k, outs_p, pos, msk, gi, idx, vals, lib_out, data, nbits)
+         s_k, s_p, outs_k, outs_p, pos, msk, gi, idx, vals, lib_out, data, nbits,
+         e_args, w_k, w_p, bpos, packed)
     torch.cuda.empty_cache()
 
     # -- 4. the 8 MP encode through the public entry point ------------------
     wrappers = {
-        "aq_field": AQ.aq_field, "quantize_cells": QK.quantize_cells,
-        "tokenize_rows": TK.tokenize_rows, "compact_rows": PK.compact_rows,
-        "copy_sections": PK.copy_sections,
+        "aq_field": AQ.aq_field, "estimate_partials": SK.estimate_partials,
+        "quantize_cells": QK.quantize_cells, "tokenize_rows": TK.tokenize_rows,
+        "compact_rows": PK.compact_rows, "copy_sections": PK.copy_sections,
     }
-    for wr in wrappers.values():
-        wr.launches = 0
+
+    def reset_counts():
+        for wr in (*wrappers.values(), PK.bitpack_groups_var):
+            wr.launches = 0
+
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     data_k = encode_image_device(img8, DIST, config=cfg)
     t_first = time.time() - t0
     for name, wr in wrappers.items():
         rec[name]["launches"] = wr.launches
-    log(f"encode photo8mp: {len(data_k)} bytes, first call {t_first:.3f} s; "
-        f"launches {json.dumps({k: v['launches'] for k, v in rec.items()})}")
-    for name, r in rec.items():
-        if not r["launches"]:
+    log(f"encode photo8mp (default configuration): {len(data_k)} bytes, first "
+        f"call {t_first:.3f} s; launches "
+        f"{json.dumps({k: rec[k]['launches'] for k in wrappers})}")
+    for name in wrappers:
+        if not rec[name]["launches"]:
             fail(f"{name}: no launch on the main path")
+    if PK.bitpack_groups_var.launches:
+        fail("bitpack_groups_var launched on the encode path")
 
     walls = []
     for _ in range(3):
@@ -360,7 +435,7 @@ def main():
         fail("photo8mp: staged job differs from encode_image_device")
     prog_a = cuda_time_ms(lambda: job._run_a(job.cap), 3, 1)
     prog_b = cuda_time_ms(job._dispatch_b, 3, 1)
-    log(f"encode photo8mp ({w}x{h}, {mp:.2f} MP, d={DIST}, 8x8 blocks): "
+    log(f"encode photo8mp ({w}x{h}, {mp:.2f} MP, d={DIST}, default configuration): "
         f"{len(data_k)} bytes, warm wall median of 3 {wall * 1e3:.1f} ms "
         f"({walls}), {mp / wall:.2f} MP/s; program A {prog_a:.3f} ms, "
         f"program B {prog_b:.3f} ms (CUDA events) [{card}]")
@@ -377,13 +452,62 @@ def main():
              f"versions' encode ({len(data_p)} B)")
     log("encode photo8mp: bytes equal to the plain-version encode on the card")
 
-    for name, ref in JAX_CPU_SIZES.items():
-        img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
-        n_b = len(encode_image_device(img, DIST, config=cfg))
-        dev_pct = 100.0 * (n_b - ref) / ref
-        log(f"encode {name}: {n_b} bytes vs JAX-CPU {ref} ({dev_pct:+.3f}%)")
-        if abs(n_b - ref) > 0.005 * ref:
-            fail(f"{name}: size {n_b} not within 0.5% of {ref}")
+    # The one-pass static tier: the same kernels in one program.
+    reset_counts()
+    job_s, t_static = synced_ms(lambda: DeviceEncodeJob(img8, DIST, config=cfg_static))
+    data_st, t_static_rest = synced_ms(job_s.result)
+    static_launches = {k: wr.launches for k, wr in wrappers.items()}
+    if not all(static_launches.values()):
+        fail(f"static tier: a kernel did not launch: {static_launches}")
+    picks = job_s._small_sync()[-2:]
+    over = len(data_st) / len(data_k)
+    log(f"encode photo8mp (one-pass static codes): {len(data_st)} bytes "
+        f"({100 * (over - 1):+.2f}% of the two-pass size), candidate picks AC "
+        f"{int(picks[0])} DC {int(picks[1])}; job init {t_static:.1f} ms, pack + "
+        f"fetch + assembly {t_static_rest:.1f} ms (host clock, synced); launches "
+        f"{json.dumps(static_launches)}; final cap {job_s.cap} ow {job_s.ow} "
+        f"ow_dc {job_s._ow_dc} [{card}]")
+    if over >= STATIC_OVERHEAD:
+        fail(f"static tier: {len(data_st)} B is not within 6% of {len(data_k)} B")
+    if encode_image_device(img8, DIST, config=cfg_static, kernels=False) != data_st:
+        fail("photo8mp: static-tier kernel encode differs from the plain versions' encode")
+    log("encode photo8mp (static): bytes equal to the plain-version encode on the card")
+
+    # bitpack_groups_var driven as program B's AC packer on the real stream.
+    reset_counts()
+    v_data, v_nbits = PK.token_data_bits(ac_stream, ac_totals, ac_table)
+    v_ends = torch.cumsum(v_nbits, 1)
+    v_words = PK.bitpack_groups_var(v_data, v_nbits, v_ends - v_nbits, ow)
+    rec["bitpack_groups_var"]["launches"] = PK.bitpack_groups_var.launches
+    if PK.bitpack_groups_var.launches != 1:
+        fail("bitpack_groups_var: its phase did not launch the kernel once")
+    if not torch.equal(v_words, PK.bitpack_groups_words(v_data, v_nbits, v_ends - v_nbits, ow)):
+        fail("bitpack_groups_var: program B's AC words differ")
+    log(f"bitpack_groups_var as program B's AC packer: {g} sections, words "
+        f"equal to bitpack_groups_words")
+    del v_data, v_nbits, v_ends, v_words
+
+    # Small images: both configurations against the JAX package's CPU
+    # sizes, and the fixed-8x8 path through kernels and plain versions.
+    for label, config, sizes in (("default", cfg, JAX_CPU_SIZES),
+                                 ("fixed 8x8", cfg_8x8, JAX_CPU_SIZES_8X8)):
+        for name, ref in sizes.items():
+            img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+            n_b = len(encode_image_device(img, DIST, config=config))
+            dev_pct = 100.0 * (n_b - ref) / ref
+            log(f"encode {name} ({label}): {n_b} bytes vs JAX-CPU {ref} ({dev_pct:+.3f}%)")
+            if abs(n_b - ref) > 0.005 * ref:
+                fail(f"{name} ({label}): size {n_b} not within 0.5% of {ref}")
+    crop = np.ascontiguousarray(img8[:, 512:1536, 1024:2048])
+    reset_counts()
+    c_k = encode_image_device(crop, DIST, config=cfg_8x8)
+    launches_8x8 = {k: wr.launches for k, wr in wrappers.items()}
+    if launches_8x8.pop("estimate_partials") or not all(launches_8x8.values()):
+        fail(f"fixed 8x8: unexpected kernel launches: {launches_8x8}")
+    if encode_image_device(crop, DIST, config=cfg_8x8, kernels=False) != c_k:
+        fail("fixed 8x8: kernel encode differs from the plain versions' encode")
+    log(f"encode photo8mp crop 1024x1024 (fixed 8x8): {len(c_k)} bytes, equal to "
+        f"the plain-version encode on the card; launches {json.dumps(launches_8x8)}")
 
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {

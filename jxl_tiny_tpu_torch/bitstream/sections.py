@@ -188,6 +188,31 @@ def write_ac_global(writer, num_groups, ac_code):
     write_entropy_code(ac_code, writer)
 
 
+def dc_context_token_masks():
+    """[NUM_DC_CONTEXTS, ALPHABET_SIZE] bool: which hybrid-uint tokens can
+    ever occur in each DC-section context, from format invariants (not from
+    corpus statistics). Every static DC candidate code must give each of
+    these tokens a code (entropy_write.load_static_codes checks it).
+
+    Bounds per the DC-section layout (ops/dc_kernels.build_dc_layout,
+    enc_frame.cc:287-424):
+      ctx 0       EPF: value PackSigned(4)=8 always           -> {8}
+      ctx 1,2     ytob/ytox gradient residual of int8 maps:
+                  |residual| <= 255 -> PackSigned <= 511       -> tokens <= 35
+      ctx 3-6     quant-field delta: cur,prev in [0,254]
+                  -> PackSigned <= 509                         -> tokens <= 35
+      ctx 7-10    strategy PackSigned({0,6,7}) = {0,12,14}     -> {0,12,14}
+      ctx 11-44   DC gradient residual; quant_dc clamps at
+                  +/-16383 (saturating quantizer)              -> all 64
+    """
+    m = np.zeros((C.NUM_DC_CONTEXTS, C.ALPHABET_SIZE), bool)
+    m[0, 8] = True
+    m[1:7, :36] = True
+    m[7:11, [0, 12, 14]] = True
+    m[11:, :] = True
+    return m
+
+
 def write_toc_and_sections(writer, sections):
     """enc_frame.cc:572-595,804-814. sections: list of BitWriter."""
     if len(sections) == 4:

@@ -1,6 +1,6 @@
 """Command line interface: python -m jxl_tiny_tpu_torch.cli <input.pfm>
-<output.jxl> [-d D] --no-block-sizes (argument-compatible with the JAX
-package's cli for the options this port covers)."""
+<output.jxl> [-d D] (argument-compatible with the JAX package's cli for the
+options this port covers)."""
 import argparse
 import sys
 import time
@@ -23,7 +23,9 @@ def main(argv=None):
                    help="disable chroma-from-luma (OPTIMIZE_CHROMA_FROM_LUMA=0)")
     p.add_argument("--no-block-sizes", action="store_true",
                    help="disable 16x8/8x16 DCT selection "
-                   "(OPTIMIZE_BLOCK_SIZES=0); required in this version")
+                   "(OPTIMIZE_BLOCK_SIZES=0)")
+    p.add_argument("--static-codes", action="store_true",
+                   help="one-pass static entropy codes (OPTIMIZE_CODE=0)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs the "
                    "plain torch versions of the kernels)")
@@ -36,6 +38,7 @@ def main(argv=None):
     from .io.pfm import read_pfm
 
     config = EncoderConfig(
+        optimize_code=not args.static_codes,
         optimize_chroma_from_luma=not args.no_cfl,
         optimize_block_sizes=not args.no_block_sizes,
     )
@@ -51,7 +54,7 @@ def main(argv=None):
         dt = time.time() - t
         with open(args.output, "wb") as f:
             f.write(data)
-    except (JxlTinyError, NotImplementedError, RuntimeError, OSError) as e:
+    except (JxlTinyError, RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if not args.quiet:

@@ -1,16 +1,23 @@
-"""Top-level encoder: image -> JPEG XL codestream, two device programs and a
-host stage between them.
+"""Top-level encoder: image -> JPEG XL codestream.
 
 Counterpart of the JAX package's encoder.DeviceEncodeJob /
-encode_image_device, single device, two-pass entropy codes:
+encode_image_device, single device, every tier of EncoderConfig.
+
+Two-pass entropy codes (optimize_code=True, the default): two device
+programs and a host stage between them
 
   program A (ops.pipeline.analyze_image_packed): pixels -> token stream,
-      base-64 histograms, DC-section layout (kernels: AQ, quantize,
-      tokenize, row compaction)
+      base-64 histograms, DC-section layout (kernels: AQ, strategy
+      estimates, quantize, tokenize, row compaction)
   host: cluster the histograms, build the prefix codes (entropy/, numpy)
   program B (ops.dc_kernels.pack_all_sections): tokens -> section words
       (kernels: row compaction for word placement, section copy)
   host: headers, TOC and assembly (bitstream/, numpy)
+
+One-pass static codes (optimize_code=False): A and B run as one program
+(ops.dc_kernels.analyze_pack_static) with candidate code tables trained
+beforehand; the device picks the cheapest candidates and the host only
+assembles.
 
 The capacity retries are the JAX package's own rules, kept so that the two
 packages pick the same buckets: the token cap, the section word budget `ow`
@@ -24,9 +31,11 @@ from . import constants as C
 from .bitstream import sections as S
 from .bitstream.bit_writer import BitWriter
 from .common import DEFAULT_CONFIG, ImageDim, clamp_distance, compute_distance_params, div_ceil
-from .entropy.entropy_write import build_ac_device_code, build_dc_device_code
+from .entropy.entropy_write import (
+    build_ac_device_code, build_dc_device_code, load_static_codes,
+)
 from .errors import InvalidInputError
-from .ops.dc_kernels import pack_all_sections
+from .ops.dc_kernels import analyze_pack_static, pack_all_sections
 from .ops.pack_kernels import VAR_FAN, ac_base64_map, var_safe_words
 from .ops.pipeline import analyze_image_packed
 from .tables import numpy_tables, tables_from_numpy
@@ -49,22 +58,6 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
-
-
-def check_config(config):
-    """This port covers the two-pass encode with fixed 8x8 blocks."""
-    if config.optimize_block_sizes:
-        raise NotImplementedError(
-            "16x8/8x16 block selection is not ported yet (ROADMAP queue 2, "
-            "item 2: the strategy kernel and compute_ac_strategy); use "
-            "EncoderConfig(optimize_block_sizes=False), or --no-block-sizes "
-            "on the command line"
-        )
-    if not config.optimize_code:
-        raise NotImplementedError(
-            "the one-pass static-code tier is not ported yet (ROADMAP queue "
-            "1, item 9); use EncoderConfig(optimize_code=True)"
-        )
 
 
 def _next_bucket(buckets, value):
@@ -114,6 +107,10 @@ class DeviceEncodeJob:
                 runs program B
       result()  reads the section words and assembles the codestream
 
+    In the one-pass tier __init__ runs the combined program, pack() only
+    checks the token capacity, and result() reads the device's candidate
+    picks.
+
     device: None for the CUDA card (raises without one), or e.g. "cpu".
     kernels: False runs the plain torch versions of the kernels instead
     (to check the kernels against them on the card)."""
@@ -123,7 +120,6 @@ class DeviceEncodeJob:
         if img.ndim != 3 or img.shape[0] != 3:
             raise InvalidInputError(f"expected a [3, H, W] image, got {img.shape}")
         self.config = DEFAULT_CONFIG if config is None else config
-        check_config(self.config)
         self.device = resolve_device(device)
         self.kernels = kernels
         self.tables = (
@@ -150,12 +146,24 @@ class DeviceEncodeJob:
         self._compact_ac = True
         self._compact_dc = True
         self._packed = False
-        self.out_a = self._run_a(self.cap)
+        self._static = not self.config.optimize_code
+        if self._static:
+            self._static_codes = sc = load_static_codes()
+
+            def dev(a):
+                return torch.from_numpy(a).to(self.device)
+
+            self._d_ac, self._d_dc = dev(sc.ac_tables), dev(sc.dc_tables)
+            self._ac_depths, self._dc_depths = dev(sc.ac_depths), dev(sc.dc_depths)
+            self._dispatch_b()
+        else:
+            self.out_a = self._run_a(self.cap)
 
     def _run_a(self, cap):
         return analyze_image_packed(
             self._up, self._yb, self._xb, self.distp, cap, self.tables,
-            cfl=self.config.optimize_chroma_from_luma, kernels=self.kernels,
+            cfl=self.config.optimize_chroma_from_luma,
+            blocks=self.config.optimize_block_sizes, kernels=self.kernels,
         )
 
     def _sync_totals_hists(self):
@@ -166,10 +174,18 @@ class DeviceEncodeJob:
     def pack(self):
         """Read program A's totals and histograms (re-running A at a larger
         token cap when a group overflowed), build the entropy codes, run
-        program B. Idempotent."""
+        program B. Idempotent. One-pass tier: the combined program already
+        ran; only the token-capacity check remains."""
         if self._packed:
             return
         self._packed = True
+        if self._static:
+            g2 = 2 * (self.dim.num_groups + self.dim.num_dc_groups)
+            totals = self._small_sync()[g2:-2]
+            if int(totals.max(initial=0)) > self.cap:
+                self.cap = _next_bucket(_CAP_BUCKETS, int(totals.max()))
+                self._dispatch_b()
+            return
         totals, hists = self._sync_totals_hists()
         if int(totals.max(initial=0)) > self.cap:
             self.cap = _next_bucket(_CAP_BUCKETS, int(totals.max()))
@@ -186,19 +202,29 @@ class DeviceEncodeJob:
         g, gd = self.dim.num_groups, self.dim.num_dc_groups
         self.wcap = min(1 << int(g * self.ow).bit_length(), 2 * 1024 * 1024)
         self._wcap_dc = min(1 << int(gd * self._ow_dc).bit_length(), 2 * 1024 * 1024)
-        out = pack_all_sections(
-            self._stream, self.out_a["totals"], self._d_ac,
-            self.out_a["dc_layout"], self._d_dc,
+        sizes = dict(
             ow_ac=self.ow, wcap_ac=self.wcap, ow_dc=self._ow_dc,
             wcap_dc=self._wcap_dc, compact_ac=self._compact_ac,
             compact_dc=self._compact_dc, kernels=self.kernels,
         )
-        self.out_b = out
+        if self._static:
+            self.out_b = analyze_pack_static(
+                self._up, self._yb, self._xb, self._d_ac, self._d_dc,
+                self._ac_depths, self._dc_depths, self.distp, self.cap,
+                self.tables, cfl=self.config.optimize_chroma_from_luma,
+                blocks=self.config.optimize_block_sizes, **sizes,
+            )
+        else:
+            self.out_b = pack_all_sections(
+                self._stream, self.out_a["totals"], self._d_ac,
+                self.out_a["dc_layout"], self._d_dc, **sizes,
+            )
         self._small_np = None
         self._ac_list = None
 
     def _small_sync(self):
-        """One device->host copy of [ac_bits, ac_offs, dc_bits, dc_offs]."""
+        """One device->host copy of [ac_bits, ac_offs, dc_bits, dc_offs]
+        (one-pass tier: followed by [totals, k_ac, k_dc])."""
         if self._small_np is None:
             self._small_np = self.out_b["small"].cpu().numpy()
         return self._small_np
@@ -296,6 +322,13 @@ class DeviceEncodeJob:
 
     def result(self) -> bytes:
         self.pack()
+        if self._static:
+            # ACGlobal / DCGlobal must serialize the candidate tables the
+            # device packed with; the picks are the same in every
+            # re-dispatch (same histograms).
+            small = self._small_sync()
+            self.full_code = self._static_codes.ac_codes[int(small[-2])]
+            self.dc_code = self._static_codes.dc_codes[int(small[-1])]
         return assemble_codestream(
             self.dim, self.distp, self._ac_writers, self.full_code,
             self._dc_writers, self.dc_code,

@@ -7,7 +7,10 @@ trees, RLE tree-of-trees, context maps coded through a nested prefix code.
 These are bitstream-format obligations; a conforming decoder reads exactly
 this layout.
 """
+import collections
 import dataclasses
+import functools
+import os
 
 import numpy as np
 
@@ -362,6 +365,86 @@ def build_dc_device_code(hist45: np.ndarray):
     >= num contexts zero) for the device DC-section packer (ops.dc_kernels)."""
     code = build_entropy_code(np.asarray(hist45))
     return code, _factored_device_table(code)
+
+
+class StaticCodes(
+    collections.namedtuple(
+        "StaticCodes",
+        "ac_codes ac_tables ac_depths dc_codes dc_tables dc_depths",
+    )
+):
+    """Candidate static codes for the one-pass tier.
+
+    *_codes: K-candidate EntropyCode lists (ACGlobal/DCGlobal
+    serialization); *_tables: [K, 9, 64] f32 factored device tables
+    (pack_kernels.table_lookup); *_depths: [K, 64, 64] i32 emission depth
+    grids for the device's integer cost argmin
+    (dc_kernels.select_code_table)."""
+
+    __slots__ = ()
+
+
+def _depth_grid(code):
+    g = code.token_depths[code.context_map.astype(np.int64)]
+    grid = np.zeros((64, 64), np.int32)
+    grid[: g.shape[0]] = g
+    return grid
+
+
+@functools.lru_cache(maxsize=None)
+def load_static_codes() -> StaticCodes:
+    """Static entropy codes for the one-pass tier (EncoderConfig
+    optimize_code=False): the role of the reference's baked
+    static_entropy_codes.h:502-971 tables, except that these were trained
+    on the repo's test corpus (constants/static_codes.npz, smoothed so that
+    every format-possible symbol has a code).
+
+    Token statistics vary across content class and distance, so the tier
+    ships K candidate tables per code space and the device picks the
+    cheapest per image from the histograms it already computes
+    (dc_kernels.select_code_table). The result is shared and read-only."""
+    from ..bitstream.sections import dc_context_token_masks
+    from ..ops.pack_kernels import ac_base64_map
+
+    path = os.path.join(
+        os.path.dirname(__file__), "..", "constants", "static_codes.npz"
+    )
+    data = np.load(path)
+    base_map = ac_base64_map()
+    ac_codes, ac_tabs, dc_codes, dc_tabs = [], [], [], []
+    for h in data["ac_hists_k"]:
+        code, tab = build_ac_device_code(h, base_map)
+        ac_codes.append(code)
+        ac_tabs.append(tab)
+    mask = dc_context_token_masks()
+    for h in data["dc_hists_k"]:
+        code, tab = build_dc_device_code(h)
+        # A possible token with depth 0 would pack 0 bits on the device and
+        # corrupt the stream with no error anywhere.
+        d = code.depths[code.context_map[: mask.shape[0]].astype(np.int64)]
+        if not (d[mask] > 0).all():
+            raise ValueError(
+                "static DC candidate lacks a code for a format-possible "
+                "token: static_codes.npz and dc_context_token_masks disagree"
+            )
+        dc_codes.append(code)
+        dc_tabs.append(tab)
+    return StaticCodes(
+        ac_codes=ac_codes,
+        ac_tables=np.stack(ac_tabs),
+        # The AC pick costs against the base-64 histogram, whose context
+        # space is exactly the 64 base clusters: grid row c = depths of
+        # base context c's cluster.
+        ac_depths=np.stack(
+            [
+                _depth_grid(dataclasses.replace(c, context_map=np.asarray(t[0], np.uint8)))
+                for c, t in zip(ac_codes, ac_tabs)
+            ]
+        ),
+        dc_codes=dc_codes,
+        dc_tables=np.stack(dc_tabs),
+        dc_depths=np.stack([_depth_grid(c) for c in dc_codes]),
+    )
 
 
 def build_entropy_code_from_cluster_histograms(clustered) -> EntropyCode:

@@ -1,6 +1,6 @@
 """Numpy helpers the port keeps its own copies of (from the JAX package's
 numpy golden model: ref/pipeline_np._strided_sum, ref/group_np._threshold_map,
-ref/dct_np.dct_matrix)."""
+ref/dct_np.dct_matrix and dct16_half_mats)."""
 import functools
 
 import numpy as np
@@ -59,3 +59,28 @@ def dct_matrix(n: int) -> np.ndarray:
     d = np.cos(np.pi * k * (2 * i + 1) / (2 * n)) / n
     d[1:] *= np.sqrt(2.0)
     return d.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def dct16_half_mats():
+    """Recombination matrices (A0, A1), each [16, 8] f32: the 16-point
+    scaled DCT of two stacked halves as a fixed linear map of the halves'
+    8-point DCTs,
+
+      C16[k] = sum_i A0[k, i] * C8_first[i] + A1[k, i] * C8_second[i]
+      A0 = D16[:, :8] @ IDCT8,  A1 = D16[:, 8:] @ IDCT8
+
+    built in float64 and rounded once to float32."""
+    k = np.arange(16)[:, None].astype(np.float64)
+    i = np.arange(16)[None, :].astype(np.float64)
+    d16 = np.cos(np.pi * k * (2 * i + 1) / 32.0) / 16.0
+    d16[1:] *= np.sqrt(2.0)
+    kk = np.arange(8)[:, None].astype(np.float64)
+    ii = np.arange(8)[None, :].astype(np.float64)
+    d8 = np.cos(np.pi * kk * (2 * ii + 1) / 16.0) / 8.0
+    d8[1:] *= np.sqrt(2.0)
+    i8 = d8.T * 8.0  # IDCT8 (f64)
+    return (
+        (d16[:, :8] @ i8).astype(np.float32),
+        (d16[:, 8:] @ i8).astype(np.float32),
+    )

@@ -53,9 +53,11 @@ def _pack_signed(v):
 
 
 def shift0(a, d, axis):
-    """For d < 0: out[i] = a[i + d] along axis, zero fill."""
+    """out[i] = a[i + d] along axis (d != 0), zero fill."""
     n = a.shape[axis]
-    z = torch.zeros_like(a.narrow(axis, 0, -d))
+    z = torch.zeros_like(a.narrow(axis, 0, abs(d)))
+    if d > 0:
+        return torch.cat([a.narrow(axis, d, n - d), z], dim=axis)
     return torch.cat([z, a.narrow(axis, 0, n + d)], dim=axis)
 
 
@@ -232,6 +234,47 @@ def pack_all_sections(stream, totals, d_ac, layout, d_dc, ow_ac, wcap_ac,
         dc_words=dc["words"], dc_bits=dc["bits"], dc_offs=dc["word_offs"],
         small=torch.cat([ac["bits"], ac["word_offs"], dc["bits"], dc["word_offs"]]),
     )
+
+
+def select_code_table(hist64, depths_k):
+    """Pick the cheapest candidate code table on the device.
+
+    hist64: [64, 64] i64 token histogram; depths_k: [K, 64, 64] i32
+    per-candidate (ctx, token) -> emission depth grids. The cost is an
+    exact int64 sum (the JAX package splits it into two int32 partial sums
+    to the same end), so the argmin is deterministic; ties go to the lowest
+    index. Returns a 0-d int64 tensor."""
+    cost = (hist64.to(torch.int64)[None] * depths_k.to(torch.int64)).sum(dim=(1, 2))
+    return torch.argmin(cost)  # the first minimum, as jnp.argmin
+
+
+def analyze_pack_static(image, yb_valid, xb_valid, d_ac, d_dc, ac_depths,
+                        dc_depths, distp, cap, tables, cfl, blocks, ow_ac,
+                        wcap_ac, ow_dc, wcap_dc, compact_ac=True,
+                        compact_dc=True, kernels=True):
+    """One-pass tier: analysis + section packing with static code tables,
+    with no histogram round trip to the host in between (the reference's
+    OPTIMIZE_CODE=0 design). d_ac / d_dc hold K candidate tables [K, 9, 64]
+    each; the device picks the cheapest per image from the histograms it
+    already computes (select_code_table) and reports the picks as the last
+    two elements of `small` ([..., totals, k_ac, k_dc]), so that the host
+    serializes the same tables into ACGlobal / DCGlobal."""
+    from .pipeline import analyze_image_packed
+
+    a = analyze_image_packed(
+        image, yb_valid, xb_valid, distp, cap, tables, cfl, blocks, kernels
+    )
+    k_ac = select_code_table(a["hists"][0], ac_depths)
+    k_dc = select_code_table(a["hists"][1], dc_depths)
+    b = pack_all_sections(
+        a["stream"][:, :cap].contiguous(), a["totals"], d_ac[k_ac],
+        a["dc_layout"], d_dc[k_dc], ow_ac=ow_ac, wcap_ac=wcap_ac, ow_dc=ow_dc,
+        wcap_dc=wcap_dc, compact_ac=compact_ac, compact_dc=compact_dc,
+        kernels=kernels,
+    )
+    b["totals"] = a["totals"]
+    b["small"] = torch.cat([b["small"], a["totals"], k_ac[None], k_dc[None]])
+    return b
 
 
 def dc_group_geometry(ysize, xsize):

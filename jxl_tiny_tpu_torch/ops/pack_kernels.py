@@ -1,5 +1,5 @@
-"""Device-side section packing: the compaction kernels (csrc/compact.cu) and
-the torch stages around them.
+"""Device-side section packing: the compaction kernels (csrc/compact.cu),
+the token bit packer (csrc/bitpack.cu) and the torch stages around them.
 
 Counterpart of the JAX package's ops/pack_kernels.py. Program A places each
 emission row's tokens into a dense per-group stream (`compact_stream`) and
@@ -7,6 +7,9 @@ histograms it (`hist_base64`); program B turns tokens into bit patterns
 (`token_data_bits`), packs them into 32-bit words (`bitpack_groups_words`,
 whose words are placed by the same compaction kernel) and lays every
 group's section words into one buffer (`compact_sections`).
+`bitpack_groups_var` is the second bit packer of the JAX package, one
+kernel from tokens to words; like there, no encoder path calls it (the
+encode keeps `bitpack_groups_words`), its tests and chip_smoke.py do.
 
 Word types: token words (`ctx << 16 | value`, < 2^22) and section words
 travel as int32 tensors; section words are 32-bit patterns, so the bit
@@ -282,6 +285,72 @@ def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
     cur = words[gi, wi]
     words[gi, wi] = torch.where(spill_v > 0, cur | u32_to_i32(spill_v), cur)
     return words
+
+
+# ---------------------------------------------------------------------------
+# Token bit packer kernel: (data, nbits, pos) -> section words in one pass
+# ---------------------------------------------------------------------------
+
+
+def bitpack_groups_var_plain(data, nbits, pos, ow):
+    """Plain torch version of the bitpack kernel (same arguments). Tokens
+    occupy disjoint bit ranges, so adding their word parts in int64 equals
+    ORing them."""
+    g, cap = data.shape
+    valid = nbits > 0
+    sh = pos & 31
+    w = pos >> 5
+    lo = torch.where(valid, (data << sh) & M32, 0)
+    hi = torch.where(valid & (sh + nbits > 32), data >> ((32 - sh) & 31), 0)
+    # Words at or beyond ow are dropped: they land in the spare column.
+    out = torch.zeros((g, ow + 1), dtype=torch.int64, device=data.device)
+    out.scatter_add_(1, torch.clamp_max(w, ow), lo)
+    out.scatter_add_(1, torch.clamp_max(w + 1, ow), hi)
+    return u32_to_i32(out[:, :ow])
+
+
+def _bind_bitpack(lib):
+    lib.bitpack_launch.argtypes = [P, P, P, P, I, I, I, P]
+    lib.bitpack_launch.restype = I
+
+
+class _BitpackVar:
+    """Kernel wrapper; `launches` counts kernel launches."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, data, nbits, pos, ow):
+        """data/nbits/pos: [G, cap] int64 per-token LSB-first bit patterns
+        (data < 2^nbits, nbits <= 28), widths and absolute bit positions;
+        tokens of width 0 are no-ops. Returns the packed words [G, ow] i32
+        (uint32 bit patterns): the OR of every token at its position, zero
+        elsewhere.
+
+        This is the contract of the JAX package's bitpack_groups_var for
+        sections of at most var_safe_words(ow) words, which is all its
+        callers may pass; beyond that the JAX kernel mis-places entries,
+        while this one packs up to ow words and drops what lies beyond."""
+        if not data.is_cuda:
+            return bitpack_groups_var_plain(data, nbits, pos, ow)
+        g, cap = data.shape
+        require(data, torch.int64, (g, cap), "bitpack_groups_var data")
+        require(nbits, torch.int64, (g, cap), "bitpack_groups_var nbits")
+        require(pos, torch.int64, (g, cap), "bitpack_groups_var pos")
+        out = torch.empty((g, ow), dtype=torch.int32, device=data.device)
+        lib = load("bitpack", _bind_bitpack)
+        check(
+            lib.bitpack_launch(
+                data.data_ptr(), nbits.data_ptr(), pos.data_ptr(),
+                out.data_ptr(), g, cap, ow, stream_ptr(data),
+            ),
+            "bitpack_groups_var",
+        )
+        self.launches += 1
+        return out
+
+
+bitpack_groups_var = _BitpackVar()
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Program A of the two-pass encode, in torch: whole image -> the device
-resident token stream, its base-64 histograms, the DC-section layout and
-the packed per-group host maps.
+"""Program A of the encode, in torch: whole image -> the device resident
+token stream, its base-64 histograms, the DC-section layout and the packed
+per-group host maps.
 
 Counterpart of the JAX package's ops/pipeline_jax.py (analyze_image_packed
-and the stages it runs) for the configuration without the AC-strategy
-search (EncoderConfig.optimize_block_sizes=False): every cell is a DCT8,
-so the strategy map is all zeros and every cell is a first cell.
+and the stages it runs). `blocks=True` (EncoderConfig.optimize_block_sizes)
+runs the AC-strategy search: the 16x8 / 8x16 coefficient sets, the entropy
+estimates of ops/strategy_kernel and the quad decisions; `blocks=False`
+makes every cell a DCT8.
 
 `kernels=True` runs the CUDA kernels (ops/*_kernel.py, ops/pack_kernels)
 on CUDA tensors; `kernels=False` runs their plain torch versions instead,
@@ -20,9 +21,12 @@ from .. import constants as C
 from ..common import div_ceil
 from . import dc_kernels as DK
 from .aq_kernel import adaptive_quant_field
-from .dct import dct2d_8x8
+from .dct import dct2d_8x8, dct8x16_from_8, dct16x8_from_8
 from .pack_kernels import base64_nz, compact_stream, hist_base64
 from .quantize_kernel import quantize_cells, quantize_cells_plain, round_away
+from .strategy_kernel import (
+    combine_partials, estimate_partials, estimate_partials_plain,
+)
 from .tokenize_kernel import tokenize_cells
 
 F32 = np.float32
@@ -107,6 +111,116 @@ def compute_cmap(coef8, valid_blocks):
     return fit(m_x, s_x, 0.0), fit(m_b, s_b, 1.0)
 
 
+def cfl_factors(ytox, ytob):
+    """[G,4,4] i32 tile factors -> (fac_x, fac_b) [G,32,32] f32 cell maps."""
+    icf = float(C.INV_COLOR_FACTOR)
+    fac_x = ytox.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2) * icf
+    fac_b = 1.0 + (
+        ytob.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2) * icf
+    )
+    return fac_x.contiguous(), fac_b.contiguous()
+
+
+def strategy_inputs(coef8, qf, masking, ytox, ytob, tables):
+    """The tensors estimate_partials takes, in its argument order, from the
+    8x8 DCTs and the AQ maps. coef8: [G,3,32,32,8,8]; qf/masking:
+    [G,32,32] f32. The DCT16-family coefficient sets (items 1 and 2,
+    [G,3,16,32,128] and [G,3,32,16,128]) come from the 8x8 DCTs by
+    recombination (ops/dct)."""
+    g = coef8.shape[0]
+    a0, a1 = tables.dct16_a0, tables.dct16_a1
+    cpair = coef8.reshape(g, 3, 16, 2, 32, 8, 8)
+    coef_v = dct16x8_from_8(cpair[:, :, :, 0], cpair[:, :, :, 1], a0, a1)
+    hpair = coef8.reshape(g, 3, 32, 16, 2, 8, 8)
+    coef_h = dct8x16_from_8(hpair[:, :, :, :, 0], hpair[:, :, :, :, 1], a0, a1)
+    fac8 = torch.stack(cfl_factors(ytox, ytob), dim=1)
+    # Vertical candidates take the larger q / masking of rows (2r, 2r+1)
+    # and the CfL factor of the top cell; horizontal likewise over columns.
+    args = (
+        coef8.reshape(g, 3, 32, 32, 64), coef_v.reshape(g, 3, 16, 32, 128),
+        coef_h.reshape(g, 3, 32, 16, 128),
+        qf, torch.maximum(qf[:, 0::2], qf[:, 1::2]),
+        torch.maximum(qf[:, :, 0::2], qf[:, :, 1::2]),
+        masking, torch.maximum(masking[:, 0::2], masking[:, 1::2]),
+        torch.maximum(masking[:, :, 0::2], masking[:, :, 1::2]),
+        fac8, fac8[:, :, 0::2], fac8[:, :, :, 0::2],
+    )
+    return tuple(a.contiguous() for a in args) + (tables.qm8, tables.qm16)
+
+
+def strategy_estimates(coef8, qf, masking, ytox, ytob, distance, tables,
+                       kernels=True):
+    """The three families' cost maps for the quad decisions. Returns (e8
+    [G,32,32], ev [G,16,32], eh [G,32,16], coef_v, coef_h)."""
+    args = strategy_inputs(coef8, qf, masking, ytox, ytob, tables)
+    estimate = estimate_partials if kernels else estimate_partials_plain
+    p8, pv, ph = estimate(*args, min(1.0, distance / 3.0))
+    mul8 = F32(1.0735757687292623 * 0.75 + (-0.55 * 0.75) / (distance + 1.4))
+    mul16 = F32(0.9019587899705066 + (-0.55) / (distance + 1.6))
+    e8 = float(F32(3.0) * mul8) + float(mul8) * combine_partials(p8, args[6], 1)
+    ev = float(mul16) * combine_partials(pv, args[7], 2)
+    eh = float(mul16) * combine_partials(ph, args[8], 2)
+    return e8, ev, eh, args[1], args[2]
+
+
+def decide_strategy(e8, ev, eh, yb_valid, xb_valid):
+    """Quad decisions from the cost maps (strict < comparisons, as the
+    reference). e8: [G,32,32]; ev: [G,16,32]; eh: [G,32,16]; yb_valid /
+    xb_valid: [G] valid block dims. Returns (strategy [G,32,32] i32,
+    is_first [G,32,32] bool)."""
+    g = e8.shape[0]
+    dev = e8.device
+    e00, e01 = e8[:, 0::2, 0::2], e8[:, 0::2, 1::2]
+    e10, e11 = e8[:, 1::2, 0::2], e8[:, 1::2, 1::2]
+    ev_l, ev_r = ev[:, :, 0::2], ev[:, :, 1::2]
+    eh_t, eh_b = eh[:, 0::2], eh[:, 1::2]
+    cost16x8 = torch.minimum(ev_l, e00 + e10) + torch.minimum(ev_r, e01 + e11)
+    cost8x16 = torch.minimum(eh_t, e00 + e01) + torch.minimum(eh_b, e10 + e11)
+    pick_v = cost16x8 < cost8x16
+    qi = torch.arange(16, device=dev)
+    quad_ok = (2 * qi[None, :, None] + 2 <= yb_valid[:, None, None]) & (
+        2 * qi[None, None, :] + 2 <= xb_valid[:, None, None]
+    )
+    vfirst = torch.zeros((g, 32, 32), dtype=torch.bool, device=dev)
+    hfirst = torch.zeros((g, 32, 32), dtype=torch.bool, device=dev)
+    vfirst[:, 0::2, 0::2] = quad_ok & pick_v & (ev_l < e00 + e10)
+    vfirst[:, 0::2, 1::2] = quad_ok & pick_v & (ev_r < e01 + e11)
+    hfirst[:, 0::2, 0::2] = quad_ok & ~pick_v & (eh_t < e00 + e01)
+    hfirst[:, 1::2, 0::2] = quad_ok & ~pick_v & (eh_b < e10 + e11)
+    second_v = DK.shift0(vfirst, -1, -2)
+    second_h = DK.shift0(hfirst, -1, -1)
+    strategy = torch.where(
+        vfirst | second_v, C.DCT16X8,
+        torch.where(hfirst | second_h, C.DCT8X16, C.DCT8),
+    ).to(torch.int32)
+    return strategy, ~(second_v | second_h)
+
+
+def compute_ac_strategy(coef8, qf, masking, ytox, ytob, distance, yb_valid,
+                        xb_valid, tables, kernels=True):
+    """The AC-strategy search. Returns (strategy [G,32,32] i32, is_first
+    [G,32,32] bool, coef_v [G,3,16,32,128], coef_h [G,3,32,16,128])."""
+    e8, ev, eh, coef_v, coef_h = strategy_estimates(
+        coef8, qf, masking, ytox, ytob, distance, tables, kernels
+    )
+    strategy, is_first = decide_strategy(e8, ev, eh, yb_valid, xb_valid)
+    return strategy, is_first, coef_v, coef_h
+
+
+def adjust_quant_field(strategy, is_first, raw_qf):
+    """Both cells of a two-cell transform take the larger raw_qf of the
+    pair."""
+    vfirst = is_first & (strategy == C.DCT16X8)
+    hfirst = is_first & (strategy == C.DCT8X16)
+    m_v = torch.maximum(raw_qf, DK.shift0(raw_qf, 1, -2))
+    m_h = torch.maximum(raw_qf, DK.shift0(raw_qf, 1, -1))
+    out = torch.where(vfirst, m_v, raw_qf)
+    out = torch.where(DK.shift0(vfirst, -1, -2), DK.shift0(m_v, -1, -2), out)
+    out = torch.where(hfirst, m_h, out)
+    out = torch.where(DK.shift0(hfirst, -1, -1), DK.shift0(m_h, -1, -1), out)
+    return out
+
+
 def _scatter_covered(values, strat, is_first):
     """values: [G,yb,xb,2] per-first-cell -> [G,yb,xb] cell map."""
     vfirst = is_first & (strat == C.DCT16X8)
@@ -121,14 +235,7 @@ def encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
                    ytob, scale, scale_dc, x_qm_mul, tables, kernels):
     """Quantize kernel + the neighbour-dependent context math on the
     [G,3,32,32] maps (the JAX package's encode_middle)."""
-    fac_x = (
-        ytox.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2)
-        * float(C.INV_COLOR_FACTOR)
-    ).contiguous()
-    fac_b = (
-        1.0 + ytob.to(torch.float32).repeat_interleave(8, 1).repeat_interleave(8, 2)
-        * float(C.INV_COLOR_FACTOR)
-    ).contiguous()
+    fac_x, fac_b = cfl_factors(ytox, ytob)
     quant = quantize_cells if kernels else quantize_cells_plain
     ordered, nzeros_total, qdcp, lastnz = quant(
         coef8.reshape(coef8.shape[0], 3, 32, 32, 64).contiguous(), coef_v, coef_h,
@@ -231,15 +338,16 @@ def pack_meta_u8(quant_dc, raw_qf, strategy, is_first, ytox, ytob):
 
 
 def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
-                          cfl=True, kernels=True):
-    """Group-batch core of program A (fixed 8x8 blocks). Returns dict of
-    stream, totals, hist and meta, plus the maps for the DC layout."""
+                          cfl=True, blocks=True, kernels=True):
+    """Group-batch core of program A. Returns dict of stream, totals, hist
+    and meta, plus the maps for the DC layout."""
     g = groups.shape[0]
     dev = groups.device
     groups = groups.to(torch.float32)
     xyb = to_xyb(groups)
-    # qf and masking feed only the AC-strategy search (not in this config).
-    _, _, raw_qf = adaptive_quant_field(xyb, distp.distance, distp.inv_scale, kernels)
+    qf, masking, raw_qf = adaptive_quant_field(
+        xyb, distp.distance, distp.inv_scale, kernels
+    )
     blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
     coef8 = dct2d_8x8(blocks8, tables.dct8)
     by_i = torch.arange(32, device=dev)[:, None]
@@ -250,12 +358,19 @@ def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
     else:
         ytox = torch.zeros((g, 4, 4), dtype=torch.int32, device=dev)
         ytob = torch.zeros((g, 4, 4), dtype=torch.int32, device=dev)
-    strategy = torch.zeros((g, 32, 32), dtype=torch.int32, device=dev)
-    is_first = torch.ones((g, 32, 32), dtype=torch.bool, device=dev)
-    # The quantizer's 16x8 / 8x16 inputs are never selected with every cell
-    # a DCT8; empty tensors of the right shape keep its contract.
-    coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
-    coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
+    if blocks:
+        strategy, is_first, coef_v, coef_h = compute_ac_strategy(
+            coef8, qf, masking, ytox, ytob, distp.distance, yb_valid, xb_valid,
+            tables, kernels,
+        )
+        raw_qf = adjust_quant_field(strategy, is_first, raw_qf)
+    else:
+        strategy = torch.zeros((g, 32, 32), dtype=torch.int32, device=dev)
+        is_first = torch.ones((g, 32, 32), dtype=torch.bool, device=dev)
+        # The quantizer's 16x8 / 8x16 inputs are never selected with every
+        # cell a DCT8; empty tensors of the right shape keep its contract.
+        coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
+        coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
     stream, totals, quant_dc = encode_groups_stream(
         coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox, ytob,
         distp.scale, distp.scale_dc, distp.x_qm_mul, valid, cap, tables, kernels,
@@ -269,13 +384,13 @@ def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
 
 
 def analyze_image_packed(image, yb_valid, xb_valid, distp, cap, tables,
-                         cfl=True, kernels=True):
+                         cfl=True, blocks=True, kernels=True):
     """Program A: whole image [3, H, W] -> dict(stream [G, cap+128] i32,
     totals [G] i64, meta [G, 8224] u8, dc_layout [Gd, DC_CAP] i32,
     hists [2, 64, 64] i64 (AC base-64, DC))."""
     groups = extract_groups_device(image)
     out = analyze_groups_packed(
-        groups, yb_valid, xb_valid, distp, cap, tables, cfl, kernels
+        groups, yb_valid, xb_valid, distp, cap, tables, cfl, blocks, kernels
     )
     maps = out.pop("_maps")
     dc_layout, dchist = dc_layout_from_maps(

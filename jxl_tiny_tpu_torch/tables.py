@@ -2,7 +2,8 @@
 
 This encoder has no learned weights: its "parameters" are the fixed tables
 the device stages read (quant/dequant/threshold matrices per strategy, scan
-orders, context tables, the DCT matrix, the DC gradient-context steps).
+orders, context tables, the DCT matrix and the DCT16 half matrices, the
+strategy search's quant weights, the DC gradient-context steps).
 `numpy_tables()` builds them from the port's own constants; the tests build
 the same dict from the JAX package's module attributes and compare.
 """
@@ -11,7 +12,7 @@ import torch
 from torch import nn
 
 from . import constants as C
-from .ops._ref import dct_matrix, threshold_map
+from .ops._ref import dct16_half_mats, dct_matrix, threshold_map
 
 
 def _strategy_tables():
@@ -64,6 +65,7 @@ def numpy_tables() -> dict:
     qm, dqm, thr, order = _strategy_tables()
     nnz_thresh, nnz_delta = _nnz_ctx_steps()
     (pos_t, pos_d, base0), (neg_t, neg_d, _) = _grad_step_tables()
+    a0, a1 = dct16_half_mats()
     return dict(
         qm_tab=qm,
         dqm_tab=dqm,
@@ -86,6 +88,11 @@ def numpy_tables() -> dict:
             [C.BLOCK_CTX_MAP[c, C.STRATEGY_CODE] for c in range(3)], axis=1
         ).astype(np.int32),  # [strategy, channel]
         dct8=dct_matrix(8),
+        dct16_a0=a0,
+        dct16_a1=a1,
+        # Quant weights of the AC-strategy search, per channel.
+        qm8=C.QUANT_DCT8.reshape(3, 64),
+        qm16=C.QUANT_DCT16.reshape(3, 128),
         grad_pos_t=pos_t,
         grad_pos_d=pos_d,
         grad_neg_t=neg_t,

@@ -1,17 +1,23 @@
-"""The PyTorch port's encode (two-pass, fixed 8x8 blocks) against the JAX
-package's encode_image_device(..., EncoderConfig(optimize_block_sizes=False)),
-on the CPU.
+"""The PyTorch port's encode against the JAX package's encode_image_device,
+on the CPU, at the default configuration (AC-strategy search on) and with
+fixed 8x8 blocks (EncoderConfig(optimize_block_sizes=False)).
 
 (a) program A from pixels: every output (stream, totals, hists, dc_layout,
-    meta) equal to the JAX package's
+    meta) equal to the JAX package's; at the default configuration the
+    strategy and is_first maps are also compared on their own
 (b) program B + host assembly fed the JAX package's program A outputs:
     codestream bytes identical
 (c) the whole port encode from pixels decodes through the JAX package's
     verification decoder at the JAX encode's PSNR (within 0.1 dB) and size
     (within 0.5%); byte identity is asserted where it holds (all five
-    images at the time of writing)
-(d) no device= and no card: raise; (e) the AC-strategy search and the
-    one-pass tier: NotImplementedError
+    images in both configurations at the time of writing: no quad of the
+    strategy search flips between the packages on this corpus); byte
+    identity also on a 512x512 crop of the 8 MP photograph
+(d) no device= and no card: raise
+(e) the capability tiers: all five combinations of the JAX package's
+    tests/test_config_tiers.py decode above 30 dB; the one-pass static
+    tier's candidate picks equal the host argmin and its bytes equal the
+    JAX package's
 
 Float stages (ingest, XYB, DCT) are compared at rtol 1e-5 / atol 1e-6:
 torch's cbrt/exp/log and XLA's round differently, and XLA contracts a*b+c
@@ -44,9 +50,13 @@ from conftest import psnr
 CFG = EncoderConfig(optimize_block_sizes=False)
 JCFG = JConfig(optimize_block_sizes=False)
 IMAGES = ["tiny64", "odd131x77", "photo256", "gradient512", "synth288x160"]
-# JAX package sizes at d=1.0 with the AC-strategy search off (measured on
-# the CPU); the port must reproduce them.
+# JAX package sizes at d=1.0 (measured on the CPU), with the AC-strategy
+# search off and at the default configuration; the port must reproduce them.
 JAX_SIZES = {"tiny64": 444, "odd131x77": 1165, "photo256": 3931, "gradient512": 13484}
+JAX_SIZES_DEFAULT = {"tiny64": 394, "odd131x77": 1061, "photo256": 3426,
+                     "gradient512": 11680}
+TIERS = [(True, True, True), (False, True, True), (True, False, True),
+         (True, True, False), (False, False, False)]
 KEYS = ("stream", "totals", "hists", "dc_layout", "meta")
 
 
@@ -78,7 +88,7 @@ def _valid_dims(img):
     return np.array(yb, np.int32), np.array(xb, np.int32)
 
 
-def _jax_program_a(img, cap):
+def _jax_program_a(img, cap, blocks=False):
     """The JAX package's program A, as its DeviceEncodeJob runs it for a
     float image below the f16 threshold (float32 upload)."""
     distp = compute_distance_params(1.0)
@@ -87,7 +97,7 @@ def _jax_program_a(img, cap):
         jnp.asarray(img), jnp.asarray(yb), jnp.asarray(xb),
         distance=float(distp.distance), inv_scale=float(distp.inv_scale),
         scale=float(distp.scale), scale_dc=float(distp.scale_dc),
-        x_qm_mul=float(distp.x_qm_mul), cap=cap, cfl=True, blocks=False,
+        x_qm_mul=float(distp.x_qm_mul), cap=cap, cfl=True, blocks=blocks,
     )
     return {k: np.asarray(v) for k, v in out.items()}
 
@@ -103,27 +113,33 @@ def _as_port(out):
     )
 
 
-@pytest.fixture(scope="module")
-def ref(testdata):
-    """Per image, computed once: (image, JAX bytes, JAX program A outputs)."""
+def _ref_cache(testdata, jcfg, blocks):
     cache = {}
 
     def get(name):
         if name not in cache:
             img = _load(testdata, name)
-            data = jax_encode(img, 1.0, upload_dtype=None, config=JCFG)
-            cache[name] = (img, data, _jax_program_a(img, 32768))
+            data = jax_encode(img, 1.0, upload_dtype=None, config=jcfg)
+            cache[name] = (img, data, _jax_program_a(img, 32768, blocks))
         return cache[name]
 
     return get
 
 
-@pytest.mark.parametrize("name", IMAGES)
-def test_program_a_matches_jax(ref, name):
-    """(a) Program A on the port's CPU path: every output key equal."""
-    img, _, want = ref(name)
-    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
-    got = job.out_a
+@pytest.fixture(scope="module")
+def ref(testdata):
+    """Per image, computed once, fixed 8x8 blocks: (image, JAX bytes, JAX
+    program A outputs)."""
+    return _ref_cache(testdata, JCFG, False)
+
+
+@pytest.fixture(scope="module")
+def ref_default(testdata):
+    """The same at the default configuration."""
+    return _ref_cache(testdata, JConfig(), True)
+
+
+def _assert_program_a_equal(got, want, name):
     assert set(got) == set(KEYS)
     for k in KEYS:
         g = got[k].numpy()
@@ -135,6 +151,35 @@ def test_program_a_matches_jax(ref, name):
 
 
 @pytest.mark.parametrize("name", IMAGES)
+def test_program_a_matches_jax(ref, name):
+    """(a) Program A on the port's CPU path: every output key equal."""
+    img, _, want = ref(name)
+    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
+    _assert_program_a_equal(job.out_a, want, name)
+
+
+def _strategy_maps(meta):
+    """(strategy, is_first) [G,32,32] from program A's packed meta bytes."""
+    sf = np.asarray(meta)[:, 7168:8192].reshape(-1, 32, 32)
+    return sf & 0x7F, (sf >> 7).astype(bool)
+
+
+@pytest.mark.parametrize("name", IMAGES)
+def test_program_a_default_matches_jax(ref_default, name):
+    """(a) at the default configuration. The strategy maps are compared
+    first, quad by quad, so that a flipped decision is named as such
+    before the streams that follow from it."""
+    img, _, want = ref_default(name)
+    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu")
+    strat, first = _strategy_maps(job.out_a["meta"].numpy())
+    jstrat, jfirst = _strategy_maps(want["meta"])
+    flipped = np.argwhere((strat != jstrat) | (first != jfirst))
+    assert flipped.size == 0, f"{name}: flipped cells (group, by, bx) {flipped[:8]}"
+    assert (strat != 0).any(), "the search chose no 16x8 / 8x16 transform"
+    _assert_program_a_equal(job.out_a, want, name)
+
+
+@pytest.mark.parametrize("name", IMAGES)
 def test_program_b_and_assembly_byte_identical(ref, name, monkeypatch):
     """(b) Program B + host assembly fed the JAX package's program A
     outputs give the JAX package's codestream, byte for byte."""
@@ -143,7 +188,9 @@ def test_program_b_and_assembly_byte_identical(ref, name, monkeypatch):
         assert len(want) == JAX_SIZES[name]
     calls = []
 
-    def jax_program_a(image, yb, xb, distp, cap, tables, cfl=True, kernels=True):
+    def jax_program_a(image, yb, xb, distp, cap, tables, cfl=True, blocks=True,
+                      kernels=True):
+        assert not blocks
         calls.append(cap)
         return _as_port(_jax_program_a(image.numpy(), cap))
 
@@ -154,17 +201,61 @@ def test_program_b_and_assembly_byte_identical(ref, name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", IMAGES)
-def test_port_encode_decodes_like_jax(ref, name):
-    """(c) The whole port encode from pixels: PSNR within 0.1 dB of the JAX
-    encode's, size within 0.5%, and (today) identical bytes."""
-    img, want, _ = ref(name)
-    got = TE.encode_image_device(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
+def test_program_b_default_byte_identical(ref_default, name, monkeypatch):
+    """(b) at the default configuration (mixed strategies in the stream
+    and in the DC layout)."""
+    img, want, _ = ref_default(name)
+    if name in JAX_SIZES_DEFAULT:
+        assert len(want) == JAX_SIZES_DEFAULT[name]
+
+    def jax_program_a(image, yb, xb, distp, cap, tables, cfl=True, blocks=True,
+                      kernels=True):
+        assert blocks and cap == 32768
+        return _as_port(_jax_program_a(image.numpy(), cap, blocks=True))
+
+    monkeypatch.setattr(TE, "analyze_image_packed", jax_program_a)
+    assert TE.encode_image_device(img, 1.0, upload_dtype=None, device="cpu") == want
+
+
+def _assert_decodes_like(img, got, want, name):
     orig = np.clip(img, 0, 1)
     p_got = psnr(np.clip(decode_jxl(got), 0, 1), orig)
     p_want = psnr(np.clip(decode_jxl(want), 0, 1), orig)
     assert abs(p_got - p_want) <= 0.1, (p_got, p_want)
     assert abs(len(got) - len(want)) <= 0.005 * len(want), (len(got), len(want))
     assert got == want, f"{name}: sizes {len(got)} vs {len(want)}"
+
+
+@pytest.mark.parametrize("name", IMAGES)
+def test_port_encode_decodes_like_jax(ref, name):
+    """(c) The whole port encode from pixels: PSNR within 0.1 dB of the JAX
+    encode's, size within 0.5%, and (today) identical bytes."""
+    img, want, _ = ref(name)
+    got = TE.encode_image_device(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
+    _assert_decodes_like(img, got, want, name)
+
+
+@pytest.mark.parametrize("name", IMAGES)
+def test_port_encode_default_decodes_like_jax(ref_default, name):
+    """(c) at the default configuration, EncoderConfig()."""
+    img, want, _ = ref_default(name)
+    got = TE.encode_image_device(img, 1.0, upload_dtype=None, device="cpu")
+    _assert_decodes_like(img, got, want, name)
+
+
+def test_photo8mp_crop_matches_jax(testdata):
+    """(c) on a 512x512 crop of the 8 MP photograph that chip_smoke.py
+    encodes on the card: at the default configuration the port's bytes
+    equal the JAX package's, and the search saves 6.6% over fixed 8x8
+    blocks on this content (13% on photo256 and gradient512)."""
+    img = read_pfm(os.path.join(testdata, "photo8mp.pfm"))
+    crop = np.ascontiguousarray(img[:, 512:1024, 1024:1536])
+    del img
+    want = jax_encode(crop, 1.0, upload_dtype=None, config=JConfig())
+    got = TE.encode_image_device(crop, 1.0, upload_dtype=None, device="cpu")
+    assert got == want and len(got) == 12599
+    fixed = TE.encode_image_device(crop, 1.0, upload_dtype=None, config=CFG, device="cpu")
+    assert len(fixed) == 13493
 
 
 @pytest.mark.parametrize("kind", ["float32", "float16", "uint8"])
@@ -216,25 +307,73 @@ def test_no_device_without_card_raises(testdata, monkeypatch):
         TE.encode_image_device(img, 1.0, config=CFG)
 
 
-@pytest.mark.parametrize(
-    "config",
-    [EncoderConfig(), EncoderConfig(optimize_block_sizes=False, optimize_code=False)],
-    ids=["block_sizes", "static_codes"],
-)
-def test_unported_tiers_raise(testdata, config):
-    """(e) The AC-strategy search and the one-pass tier are explicit
-    limits of this port, not fallbacks."""
-    img = read_pfm(os.path.join(testdata, "tiny64.pfm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.encode_image_device(img, 1.0, config=config, device="cpu")
+@pytest.mark.parametrize("code,cfl,blocks", TIERS)
+def test_tier_combinations_decode(code, cfl, blocks):
+    """(e) Every capability tier runs and decodes above 30 dB (the cases
+    and the bound of the JAX package's tests/test_config_tiers.py)."""
+    img = _synth()
+    cfg = EncoderConfig(optimize_code=code, optimize_chroma_from_luma=cfl,
+                        optimize_block_sizes=blocks)
+    data = TE.encode_image_device(img, 1.0, upload_dtype=None, config=cfg, device="cpu")
+    p = psnr(np.clip(decode_jxl(data), 0, 1), np.clip(img, 0, 1))
+    assert p > 30.0, f"PSNR {p:.2f} too low for tier {cfg}"
 
 
-def test_cli(testdata, tmp_path, capsys):
-    """The CLI encodes with --no-block-sizes and refuses without it."""
+@pytest.mark.parametrize("name", ["tiny64", "synth288x160"])
+def test_static_tier_matches_jax(testdata, name):
+    """(e) One-pass static codes: bytes equal to the JAX package's."""
+    img = _load(testdata, name)
+    want = jax_encode(img, 1.0, upload_dtype=None, config=JConfig(optimize_code=False))
+    got = TE.encode_image_device(img, 1.0, upload_dtype=None, device="cpu",
+                                 config=EncoderConfig(optimize_code=False))
+    _assert_decodes_like(img, got, want, name)
+
+
+@pytest.mark.parametrize("name", ["synth288x160", "photo256"])
+def test_static_candidate_selection_matches_host(testdata, name):
+    """(e) The device's candidate picks, reported at the end of `small`,
+    equal the host's int64 argmin over the two-pass job's histograms, and
+    ACGlobal / DCGlobal serialize those candidates."""
+    from jxl_tiny_tpu_torch.entropy.entropy_write import load_static_codes
+
+    img = _load(testdata, name)
+    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu",
+                             config=EncoderConfig(optimize_code=False))
+    data = job.result()
+    small = job._small_sync()
+    k_ac, k_dc = int(small[-2]), int(small[-1])
+    two = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu")
+    hists = two.out_a["hists"].numpy()
+    sc = load_static_codes()
+    for k_dev, hist, depths in ((k_ac, hists[0], sc.ac_depths), (k_dc, hists[1], sc.dc_depths)):
+        costs = (hist[None] * depths.astype(np.int64)).sum(axis=(1, 2))
+        assert k_dev == int(np.argmin(costs)), (k_dev, costs)
+    assert len(sc.ac_codes) > 1 and len(sc.dc_codes) > 1
+    assert job.full_code is sc.ac_codes[k_ac] and job.dc_code is sc.dc_codes[k_dc]
+    assert np.array_equal(small[-2 - len(two.out_a["totals"]):-2], two.out_a["totals"].numpy())
+    two_pass = two.result()
+    assert len(two_pass) < len(data) < 1.25 * len(two_pass)
+    assert decode_jxl(data) is not None
+
+
+def test_static_tier_cap_retry(testdata):
+    """(e) A token cap that a group overflows: the one-pass job re-runs its
+    combined program at the next bucket and gives the same bytes."""
+    img = _load(testdata, "photo256")
+    cfg = EncoderConfig(optimize_code=False)
+    want = TE.encode_image_device(img, 1.0, upload_dtype=None, config=cfg, device="cpu")
+    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, cap=1024, config=cfg, device="cpu")
+    assert job.result() == want and job.cap == 32768
+
+
+def test_cli(testdata, tmp_path):
+    """The CLI at the default configuration, with --no-block-sizes and with
+    --static-codes."""
     src = os.path.join(testdata, "tiny64.pfm")
     out = tmp_path / "t.jxl"
-    assert cli.main([src, str(out), "-d", "1.0", "--no-block-sizes",
-                     "--device", "cpu", "-q"]) == 0
-    assert len(out.read_bytes()) == JAX_SIZES["tiny64"]
-    assert cli.main([src, str(tmp_path / "u.jxl"), "--device", "cpu", "-q"]) == 1
-    assert "--no-block-sizes" in capsys.readouterr().err
+    base = [src, str(out), "-d", "1.0", "--device", "cpu", "-q"]
+    for flags, size in (([], JAX_SIZES_DEFAULT["tiny64"]),
+                        (["--no-block-sizes"], JAX_SIZES["tiny64"]),
+                        (["--static-codes"], 1058)):
+        assert cli.main(base + flags) == 0
+        assert len(out.read_bytes()) == size, flags

@@ -3,9 +3,14 @@
 Each plain torch version (what a kernel wrapper runs on a CPU tensor) gets
 the same numpy-made inputs as its JAX twin; the Pallas kernels run in
 interpret mode on the CPU, as in the JAX package's own tests. Tolerances:
-integer outputs exact; float outputs (AQ qf / masking) rtol 1e-5, atol 1e-6,
-since torch's and XLA's transcendental functions (exp2, log2) round
-differently; raw_qf decisions exact.
+integer outputs exact; float outputs (AQ qf / masking, the 16x8 / 8x16
+DCTs) rtol 1e-5, atol 1e-6, since torch's and XLA's transcendental
+functions (exp2, log2) round differently and their matrix products
+accumulate in different orders; raw_qf decisions exact. The strategy
+estimates are 64- and 128-term float sums whose order differs between the
+packages (and XLA contracts a*b+c into FMA): rtol 5e-5, the figure the JAX
+package's own kernel-against-twin test uses. The quad decisions and the
+quant-field adjustment, fed the JAX package's estimates, are exact.
 
 Tests marked `gpu` compare each CUDA kernel with its plain version on the
 card (exact); they skip on a host without one. The machine with the card
@@ -26,10 +31,13 @@ from jxl_tiny_tpu_torch.ops import dc_kernels as DK
 from jxl_tiny_tpu_torch.ops import pack_kernels as PK
 from jxl_tiny_tpu_torch.ops import pipeline as PL
 from jxl_tiny_tpu_torch.ops import quantize_kernel as QK
+from jxl_tiny_tpu_torch.ops import strategy_kernel as SK
 from jxl_tiny_tpu_torch.ops import tokenize_kernel as TK
+from jxl_tiny_tpu_torch.ops import dct as DCT
 from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
 
-TABLES = tables_from_numpy(numpy_tables(), "cpu")
+NP_TABLES = numpy_tables()
+TABLES = tables_from_numpy(NP_TABLES, "cpu")
 TESTDATA = os.path.join(os.path.dirname(__file__), "..", "testdata")
 
 
@@ -52,13 +60,15 @@ def jx():
     from types import SimpleNamespace
 
     import jax.numpy as jnp
-    from jxl_tiny_tpu.ops import dc_kernels, pack_kernels
+    from jxl_tiny_tpu.ops import dc_kernels, dct_jax, pack_kernels, pipeline_jax
+    from jxl_tiny_tpu.ops import strategy_kernel
     from jxl_tiny_tpu.ops.aq_kernel import adaptive_quant_field_kernel
     from jxl_tiny_tpu.ops.quantize_kernel import quantize_cells
     from jxl_tiny_tpu.ops.tokenize_kernel import tokenize_cells
 
     return SimpleNamespace(
-        jnp=jnp, DK=dc_kernels, PK=pack_kernels,
+        jnp=jnp, DK=dc_kernels, PK=pack_kernels, PJ=pipeline_jax,
+        SK=strategy_kernel, DCT=dct_jax,
         aq=adaptive_quant_field_kernel, quantize=quantize_cells,
         tokenize=tokenize_cells,
     )
@@ -147,6 +157,80 @@ def _dc_maps(seed=4):
         ydb, xdb, -(-ydb * 8 // 64), -(-xdb * 8 // 64),
         int(ydb * xdb - 1).bit_length())]
     return [qdc, raw_qf, strategy, is_first, ytox, ytob], geo
+
+
+def _estimate_inputs(seed=3, g=2, realistic=True):
+    """Random coefficient sets and cell maps for the strategy estimates, in
+    the argument order of estimate_partials. `realistic` scales each
+    coefficient by its quant weight so that the scaled values are of order
+    one, as an encoder's are; otherwise the coefficients are unit normals
+    (the JAX package's own kernel test), whose scaled values run into the
+    thousands: there the info-loss partials sum squared rounding residues
+    of numbers whose last bit is ~1e-3, and only the combined estimates,
+    which the entropy terms dominate, are comparable."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    qm8, qm16 = NP_TABLES["qm8"], NP_TABLES["qm16"]
+    coef8 = rng.randn(g, 3, 32, 32, 64).astype(f)
+    coef_v = rng.randn(g, 3, 16, 32, 128).astype(f)
+    coef_h = rng.randn(g, 3, 32, 16, 128).astype(f)
+    if realistic:
+        # The low-frequency weights are zero (those positions cost nothing).
+        w8 = f(1.5) / np.where(qm8 == 0, f(1.5), qm8)[None, :, None, None, :]
+        w16 = f(1.5) / np.where(qm16 == 0, f(1.5), qm16)[None, :, None, None, :]
+        coef8, coef_v, coef_h = coef8 * w8, coef_v * w16, coef_h * w16
+    qf = np.abs(rng.randn(g, 32, 32)).astype(f)
+    masking = np.abs(rng.randn(g, 32, 32)).astype(f)
+    fac = np.stack([rng.randn(g, 32, 32).astype(f) * f(0.1),
+                    f(1.0) + rng.randn(g, 32, 32).astype(f) * f(0.1)], axis=1)
+    return [
+        coef8, coef_v, coef_h,
+        qf, np.maximum(qf[:, ::2], qf[:, 1::2]), np.maximum(qf[:, :, ::2], qf[:, :, 1::2]),
+        masking, np.maximum(masking[:, ::2], masking[:, 1::2]),
+        np.maximum(masking[:, :, ::2], masking[:, :, 1::2]),
+        fac, np.ascontiguousarray(fac[:, :, ::2]), np.ascontiguousarray(fac[:, :, :, ::2]),
+        qm8, qm16,
+    ]
+
+
+def _var_token_fields(case):
+    """The three inputs of the JAX package's variable-window packer tests:
+    a section filled up to var_safe_words(ow), interleaved zero-width
+    entries with whole zero runs, and maximal 28-bit widths. Returns
+    (data u32, nbits i32, pos i32, ow), one group each."""
+    if case == "safe_fill":
+        rng = np.random.RandomState(1)
+        cap, ow = 4096, 512
+        nbits = rng.randint(10, 28, size=(1, cap)).astype(np.int32)
+        nbits[0, np.cumsum(nbits[0]) > 32 * PK.var_safe_words(ow)] = 0
+        draw = rng.randint(0, 1 << 30, size=(1, cap))
+    else:
+        rng = np.random.RandomState(12)
+        cap = ow = 4096
+        nbits = rng.randint(0, 29, size=(2, cap)).astype(np.int32)
+        nbits[0, ::3] = 0
+        nbits[0, 64:192] = 0
+        nbits[1, :64] = 28
+        nbits[:, -11:] = 0
+        draw = rng.randint(0, 1 << 30, size=(2, cap))
+        k = {"zero_runs": 0, "max_widths": 1}[case]
+        nbits, draw = nbits[k: k + 1], draw[k: k + 1]
+    data = (draw & ((1 << np.maximum(nbits, 1)) - 1)).astype(np.uint32)
+    data[nbits == 0] = 0
+    pos = (np.cumsum(nbits, axis=1) - nbits).astype(np.int32)
+    return data, nbits, pos, ow
+
+
+def _scalar_bitpack(data, nbits, ow):
+    """Token-by-token reference packer for one group."""
+    out = np.zeros(ow, np.uint32)
+    p = 0
+    for d, nb in zip(data.tolist(), nbits.tolist()):
+        out[p >> 5] |= (d << (p & 31)) & 0xFFFFFFFF
+        if (p & 31) + nb > 32:
+            out[(p >> 5) + 1] |= d >> (32 - (p & 31))
+        p += nb
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -301,17 +385,247 @@ def test_dc_layout_and_hist_match_jax(jx):
                           np.asarray(jx.DK.dc_hist(want)).astype(np.int64))
 
 
+@pytest.mark.parametrize("family", ["16x8", "8x16"])
+def test_dct16_from_8_matches_jax(jx, family):
+    """The 16x8 / 8x16 transforms recombined from pairs of 8x8 DCTs."""
+    rng = np.random.RandomState(11)
+    a = (rng.randn(2, 3, 16, 32, 8, 8) * 0.05).astype(np.float32)
+    b = (rng.randn(2, 3, 16, 32, 8, 8) * 0.05).astype(np.float32)
+    jfn, fn = {"16x8": (jx.DCT.dct16x8_from_8, DCT.dct16x8_from_8),
+               "8x16": (jx.DCT.dct8x16_from_8, DCT.dct8x16_from_8)}[family]
+    want = np.asarray(jfn(jx.jnp.asarray(a), jx.jnp.asarray(b)))
+    got = fn(torch.from_numpy(a), torch.from_numpy(b), TABLES.dct16_a0, TABLES.dct16_a1)
+    assert got.shape == want.shape == (2, 3, 16, 32, 8, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_ceil_log2_nz_exact(jx):
+    """The exponent-bitcast ceil(log2) on 1..2^24: every power of two with
+    its neighbours, and random samples; exact against integer arithmetic
+    and against the JAX package's."""
+    rng = np.random.RandomState(13)
+    pows = 1 << np.arange(25)
+    v = np.unique(np.concatenate([
+        [0], pows, pows - 1, pows[:-1] + 1, np.arange(1, 4097),
+        rng.randint(1, (1 << 24) + 1, size=200000),
+    ]))
+    v = v[v <= 1 << 24].astype(np.int32)
+    want = np.array([max(int(x), 1) - 1 for x in v], np.int64)
+    want = np.array([int(x).bit_length() for x in want], np.int32)
+    got = SK._ceil_log2_nz(torch.from_numpy(v)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.asarray(jx.SK._ceil_log2_nz(jx.jnp.asarray(v))).astype(np.int32))
+
+
+def test_estimate_partials_matches_jax(jx):
+    """Strategy kernel module: the per-channel partials of all three
+    families against the Pallas kernel (interpret mode)."""
+    args = _estimate_inputs()
+    slope = min(1.0, 1.0 / 3.0)
+    want = jx.SK.estimate_partials(*[jx.jnp.asarray(a) for a in args], slope)
+    got = SK.estimate_partials(*[torch.from_numpy(a) for a in args], slope)
+    for name, w, g_ in zip(("p8", "pv", "ph"), want, got):
+        w = np.asarray(w)
+        assert g_.shape == w.shape, name
+        np.testing.assert_allclose(g_.numpy(), w, rtol=5e-5, err_msg=name)
+
+
+def _estimate_entropy_plain(coef, qm, q, masking, fac_x, fac_b, distance):
+    """Whole-cell estimate in plain torch, written after the JAX package's
+    `_estimate_entropy`: a second model that the port's partials +
+    combine_partials are held against (library reductions, so equal only
+    up to summation order).
+
+    coef: [G,3,...,S]; qm: [3,S]; q/masking/fac_*: [G,...] -> [G,...]."""
+    num_blocks = coef.shape[-1] // 64
+    cf = torch.stack([fac_x, torch.zeros_like(fac_x), fac_b], dim=1)
+    qm_b = qm.reshape((1, 3) + (1,) * (coef.dim() - 3) + (-1,))
+    val = (coef - cf[..., None] * coef[:, 1:2]) * qm_b * q[:, None, ..., None]
+    rval = torch.round(val)
+    diff = torch.abs(val - rval)
+    info_loss = diff.sum(dim=(1, -1))
+    info_loss2 = (diff * diff).sum(dim=(1, -1))
+    aq = torch.abs(rval)
+    nzeros = (aq != 0).sum(dim=-1)
+    slope = min(1.0, distance / 3.0)
+    ent = (
+        (aq >= 1.5).sum(dim=-1) * float(SK.K_ABOVE15)
+        + torch.sqrt(aq).sum(dim=-1) * float(SK.K_SQRT)
+        + nzeros * float(SK.nz_cost(slope))
+    )
+    nbits = SK._ceil_log2_nz(nzeros + 1) + 1
+    ent = ent + float(SK.K_NBITS) * (SK._ceil_log2_nz(nbits + 17) + nbits)
+    score = float(SK.K_IL) * info_loss + float(SK.K_IL2) * torch.sqrt(num_blocks * info_loss2)
+    return ent.sum(dim=1) + masking * score
+
+
+@pytest.mark.parametrize("realistic", [True, False], ids=["scaled", "unit_normal"])
+@pytest.mark.parametrize("family", ["8x8", "16x8", "8x16"])
+def test_combined_estimates_match_jax(jx, family, realistic):
+    """Partials + combine_partials against the JAX package's kernel +
+    combine, against its whole-cell twin _estimate_entropy, and against the
+    plain torch copy of that twin above."""
+    args = _estimate_inputs(seed=4, realistic=realistic)
+    k = {"8x8": 0, "16x8": 1, "8x16": 2}[family]
+    distance = 2.0
+    slope = min(1.0, distance / 3.0)
+    nb = 1 if k == 0 else 2
+    coef, q, m, fac = args[k], args[3 + k], args[6 + k], args[9 + k]
+    qm = args[12] if k == 0 else args[13]
+    j = jx.jnp.asarray
+    jp = jx.SK.estimate_partials(*[j(a) for a in args], slope)[k]
+    want_kernel = np.asarray(jx.SK.combine_partials(jp, j(m), nb))
+    want_twin = np.asarray(jx.PJ._estimate_entropy(
+        j(coef), j(qm), j(q), j(m), j(fac[:, 0]), j(fac[:, 1]), distance))
+    t = torch.from_numpy
+    p = SK.estimate_partials(*[t(a) for a in args], slope)[k]
+    got = SK.combine_partials(p, t(m), nb).numpy()
+    own_twin = _estimate_entropy_plain(
+        t(coef), t(qm), t(q), t(m), t(fac[:, 0]), t(fac[:, 1]), distance).numpy()
+    np.testing.assert_allclose(got, want_kernel, rtol=5e-5)
+    np.testing.assert_allclose(got, want_twin, rtol=5e-5)
+    np.testing.assert_allclose(got, own_twin, rtol=5e-5)
+
+
+def _jax_strategy_case(jx, yb, xb):
+    """photo256 through the JAX package's stages up to the strategy search:
+    its cost maps (computed as compute_ac_strategy computes them) and its
+    decisions."""
+    j = jx.jnp.asarray
+    xyb = j(_xyb_groups()[:1])
+    distance = 1.0
+    distp = compute_distance_params(distance)
+    qf, masking, raw_qf = jx.aq(xyb, distp.distance, distp.inv_scale)
+    blocks8 = xyb.reshape(1, 3, 32, 8, 32, 8).transpose(0, 1, 2, 4, 3, 5)
+    coef8 = jx.DCT.dct2d(blocks8, 8, 8)
+    ybv, xbv = j(np.array([yb], np.int32)), j(np.array([xb], np.int32))
+    ar = np.arange(32)
+    valid = j((ar[None, :, None] < yb) & (ar[None, None, :] < xb))
+    ytox, ytob = jx.PJ.compute_cmap(coef8, valid)
+    strategy, is_first, coef_v, coef_h = jx.PJ.compute_ac_strategy(
+        xyb, coef8, qf, masking, ytox, ytob, distance, ybv, xbv)
+    icf = np.float32(1.0 / 84)
+    fac_x = jx.jnp.repeat(jx.jnp.repeat(ytox.astype(np.float32), 8, 1), 8, 2) * icf
+    fac_b = 1.0 + jx.jnp.repeat(jx.jnp.repeat(ytob.astype(np.float32), 8, 1), 8, 2) * icf
+    mx = jx.jnp.maximum
+    q_v, m_v = mx(qf[:, ::2], qf[:, 1::2]), mx(masking[:, ::2], masking[:, 1::2])
+    q_h, m_h = mx(qf[:, :, ::2], qf[:, :, 1::2]), mx(masking[:, :, ::2], masking[:, :, 1::2])
+    fac = jx.jnp.stack([fac_x, fac_b], axis=1)
+    p8, pv, ph = jx.SK.estimate_partials(
+        coef8.reshape(1, 3, 32, 32, 64), coef_v, coef_h, qf, q_v, q_h,
+        masking, m_v, m_h, fac, fac[:, :, ::2], fac[:, :, :, ::2],
+        NP_TABLES["qm8"], NP_TABLES["qm16"], min(1.0, distance / 3.0))
+    f = np.float32
+    mul8 = f(1.0735757687292623 * 0.75 + (-0.55 * 0.75) / (distance + 1.4))
+    mul16 = f(0.9019587899705066 + (-0.55) / (distance + 1.6))
+    e8 = f(3.0) * mul8 + mul8 * jx.SK.combine_partials(p8, masking, 1)
+    ev = mul16 * jx.SK.combine_partials(pv, m_v, 2)
+    eh = mul16 * jx.SK.combine_partials(ph, m_h, 2)
+    return dict(
+        e=[np.array(a) for a in (e8, ev, eh)], yb=np.array(ybv), xb=np.array(xbv),
+        strategy=np.array(strategy), is_first=np.array(is_first),
+        raw_qf=np.array(raw_qf), coef8=np.array(coef8), qf=np.array(qf),
+        masking=np.array(masking), ytox=np.array(ytox), ytob=np.array(ytob),
+        adjusted=np.array(jx.PJ.adjust_quant_field(strategy, is_first, raw_qf)),
+    )
+
+
+@pytest.mark.parametrize("yb,xb", [(32, 32), (19, 27)], ids=["full", "partial"])
+def test_strategy_decisions_match_jax(jx, yb, xb):
+    """The quad decisions fed the JAX package's cost maps, and the quant
+    field adjustment that follows: exact. The port's own cost maps on the
+    same inputs agree within the estimate tolerance. `partial` is a group
+    at the image edge (odd valid dims: quads that straddle the edge stay
+    DCT8)."""
+    c = _jax_strategy_case(jx, yb, xb)
+    t = torch.from_numpy
+    strategy, is_first = PL.decide_strategy(*[t(a) for a in c["e"]], t(c["yb"]), t(c["xb"]))
+    assert np.array_equal(strategy.numpy(), c["strategy"])
+    assert np.array_equal(is_first.numpy(), c["is_first"])
+    shares = [(c["strategy"] == k).mean() for k in range(3)]
+    assert min(shares[1:]) > 0.2, shares  # both two-cell transforms occur
+    if (yb, xb) != (32, 32):
+        assert (c["strategy"][0, yb - 1:, :] == 0).all()
+        assert (c["strategy"][0, :, xb - 1:] == 0).all()
+    adjusted = PL.adjust_quant_field(strategy, is_first, t(c["raw_qf"]))
+    assert np.array_equal(adjusted.numpy(), c["adjusted"])
+    assert (c["adjusted"] != c["raw_qf"]).any()
+    own = PL.strategy_estimates(
+        t(c["coef8"]), t(c["qf"]), t(c["masking"]), t(c["ytox"]), t(c["ytob"]),
+        1.0, TABLES)
+    for got, want in zip(own[:3], c["e"]):
+        np.testing.assert_allclose(got.numpy(), want, rtol=5e-5)
+
+
+@pytest.mark.parametrize("case", ["safe_fill", "zero_runs", "max_widths"])
+def test_bitpack_groups_var_matches_jax(jx, case):
+    """The token bit packer against the Pallas variable-window packer
+    (interpret mode) and the scalar reference: words exact. It also equals
+    bitpack_groups_words where that packer's precondition holds (no
+    interleaved zero widths)."""
+    data, nbits, pos, ow = _var_token_fields(case)
+    if case == "safe_fill":
+        assert int(nbits.sum()) > 32 * PK.var_safe_words(ow) - 28 * 8
+    j = jx.jnp.asarray
+    want = np.asarray(jx.PK.bitpack_groups_var(j(data), j(nbits), j(pos), ow))
+    d, n, p = (torch.from_numpy(a.astype(np.int64)) for a in (data, nbits, pos))
+    got = u32(PK.bitpack_groups_var(d, n, p, ow))
+    assert np.array_equal(got[0], _scalar_bitpack(data[0], nbits[0], ow))
+    assert np.array_equal(got, want)
+    words = u32(PK.bitpack_groups_words(d, n, p, ow, prefix_valid=case == "safe_fill"))
+    assert np.array_equal(got, words)
+
+
+def test_bitpack_groups_var_drops_words_beyond_ow():
+    """Tokens at or beyond ow words leave the kept words untouched."""
+    data, nbits, pos, ow = _var_token_fields("max_widths")
+    d, n, p = (torch.from_numpy(a.astype(np.int64)) for a in (data, nbits, pos))
+    full = u32(PK.bitpack_groups_var(d, n, p, ow))
+    cut = u32(PK.bitpack_groups_var(d, n, p, 100))
+    assert np.array_equal(cut, full[:, :100]) and full[:, 100:].any()
+
+
+@pytest.mark.parametrize("space", ["ac", "dc"])
+def test_select_code_table_matches_jax(jx, space):
+    """The static tier's candidate pick: equal to the plain int64 argmin and
+    to the JAX package's split-sum pick, on histograms that favour
+    different candidates."""
+    from jxl_tiny_tpu_torch.entropy.entropy_write import load_static_codes
+
+    sc = load_static_codes()
+    depths = sc.ac_depths if space == "ac" else sc.dc_depths
+    rng = np.random.RandomState(14)
+    picks = set()
+    for trial in range(6):
+        hist = (rng.gamma(0.3, 2000.0, size=(64, 64)) * (rng.rand(64, 1) < 0.6)).astype(np.uint32)
+        if trial == 0:
+            hist[3, 5] = np.uint32(3_000_000_000)  # one bin beyond int32
+        if space == "dc":
+            hist[45:] = 0
+        want = int(np.argmin((hist.astype(np.int64)[None] * depths).sum(axis=(1, 2))))
+        got = int(DK.select_code_table(torch.from_numpy(hist.astype(np.int64)),
+                                       torch.from_numpy(depths)))
+        assert got == want
+        assert got == int(jx.DK.select_code_table(jx.jnp.asarray(hist), jx.jnp.asarray(depths)))
+        picks.add(got)
+    assert len(picks) > 1
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors each kernel wrapper runs its plain version and counts
     no launch."""
     wrappers = (AQ.aq_field, QK.quantize_cells, TK.tokenize_rows,
-                PK.compact_rows, PK.copy_sections)
+                PK.compact_rows, PK.copy_sections, SK.estimate_partials,
+                PK.bitpack_groups_var)
     before = [w.launches for w in wrappers]
     tok, cnt = _rows(9, 1)
     AQ.aq_field(torch.zeros((1, 3, 256, 256)), 1.0)
     PK.compact_stream(torch.from_numpy(tok), torch.from_numpy(cnt), 32768)
     PK.compact_sections(torch.zeros((2, 256), dtype=torch.int32),
                         torch.tensor([100, 5000]), 1024)
+    SK.estimate_partials(*[torch.from_numpy(a) for a in _estimate_inputs(g=1)], 0.5)
+    z = torch.zeros((1, 128), dtype=torch.int64)
+    PK.bitpack_groups_var(z, z, z, 64)
     assert [w.launches for w in wrappers] == before
 
 
@@ -338,7 +652,7 @@ def test_aq_kernel_on_card(cuda):
 @pytest.mark.gpu
 def test_quantize_kernel_on_card(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in _quant_inputs()]
-    tabs = TABLES.to(cuda)
+    tabs = tables_from_numpy(NP_TABLES, cuda)
     distp = compute_distance_params(1.0)
     sc = (distp.scale, distp.scale_dc, distp.x_qm_mul)
     got = QK.quantize_cells(*args, tabs, *sc)
@@ -349,7 +663,7 @@ def test_quantize_kernel_on_card(cuda):
 @pytest.mark.gpu
 def test_tokenize_kernel_on_card(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in _token_rows()]
-    tabs = TABLES.to(cuda)
+    tabs = tables_from_numpy(NP_TABLES, cuda)
     got = TK.tokenize_cells(*args, tabs)
     want = TK.tokenize_cells(*args, tabs, kernels=False)
     assert _same(got, want)
@@ -372,3 +686,24 @@ def test_copy_sections_kernel_on_card(cuda):
     got = PK.compact_sections(packed, bits, 65536)
     want = PK.compact_sections(packed, bits, 65536, kernels=False)
     assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_estimate_kernel_on_card(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in _estimate_inputs()]
+    for slope in (1.0 / 3.0, 1.0):
+        got = SK.estimate_partials(*args, slope)
+        want = SK.estimate_partials_plain(*args, slope)
+        assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["safe_fill", "zero_runs", "max_widths"])
+def test_bitpack_var_kernel_on_card(cuda, case):
+    data, nbits, pos, ow = _var_token_fields(case)
+    d, n, p = (torch.from_numpy(a.astype(np.int64)).to(cuda) for a in (data, nbits, pos))
+    got = PK.bitpack_groups_var(d, n, p, ow)
+    assert _same(got, PK.bitpack_groups_var_plain(d, n, p, ow))
+    assert np.array_equal(u32(got.cpu())[0], _scalar_bitpack(data[0], nbits[0], ow))
+    cut = PK.bitpack_groups_var(d, n, p, 100)
+    assert _same(cut, got[:, :100].contiguous())

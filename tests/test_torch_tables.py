@@ -15,9 +15,12 @@ import torch
 import jxl_tiny_tpu.constants as JC
 from jxl_tiny_tpu.ops import dc_kernels as JDK
 from jxl_tiny_tpu.ops import pipeline_jax as PJ
-from jxl_tiny_tpu.ref.dct_np import dct_matrix
+from jxl_tiny_tpu.entropy import entropy_write as JEW
+from jxl_tiny_tpu.ref.dct_np import dct16_half_mats, dct_matrix
 
 import jxl_tiny_tpu_torch.constants as TC
+from jxl_tiny_tpu_torch.bitstream import sections as TS
+from jxl_tiny_tpu_torch.entropy import entropy_write as TEW
 from jxl_tiny_tpu_torch.tables import EncoderTables, numpy_tables, tables_from_numpy
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -44,6 +47,10 @@ def _jax_tables():
         nnz_delta=PJ._NNZ_DELTA,
         block_ctx_tab=PJ._BLOCK_CTX_TAB,
         dct8=dct_matrix(8),
+        dct16_a0=dct16_half_mats()[0],
+        dct16_a1=dct16_half_mats()[1],
+        qm8=JC.QUANT_DCT8.reshape(3, 64),
+        qm16=JC.QUANT_DCT16.reshape(3, 128),
         grad_pos_t=JDK._POS_T,
         grad_pos_d=JDK._POS_D,
         grad_neg_t=JDK._NEG_T,
@@ -101,6 +108,37 @@ def test_constants_copy_matches(name):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     else:
         assert a == b
+
+
+def test_static_codes_file_matches():
+    """Every array of the port's own static_codes.npz equals the JAX
+    package's."""
+    a = np.load(os.path.join(os.path.dirname(JC.__file__), "static_codes.npz"))
+    b = np.load(os.path.join(os.path.dirname(TC.__file__), "static_codes.npz"))
+    assert sorted(a.files) == sorted(b.files) and len(a.files) >= 2
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("field", ["ac_tables", "ac_depths", "dc_tables", "dc_depths",
+                                   "ac_codes", "dc_codes"])
+def test_static_codes_match_jax_package(field):
+    """load_static_codes: the candidate device tables, depth grids and
+    serialized codes equal the JAX package's, candidate by candidate."""
+    want, got = getattr(JEW.load_static_codes(), field), getattr(TEW.load_static_codes(), field)
+    if not field.endswith("codes"):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        return
+    assert len(got) == len(want) > 1
+    for g, w in zip(got, want):
+        for attr in ("context_map", "depths", "bits", "token_depths"):
+            assert np.array_equal(getattr(g, attr), getattr(w, attr)), attr
+
+
+def test_dc_context_token_masks_match():
+    from jxl_tiny_tpu.bitstream.sections import dc_context_token_masks
+
+    assert np.array_equal(TS.dc_context_token_masks(), dc_context_token_masks())
 
 
 def test_import_loads_no_jax():
