@@ -12,9 +12,12 @@ Phases (any failure exits non-zero at once):
               against its plain torch version (exact; the quantizer and
               the tokenizer also on an all-DCT8 map); time kernel, plain
               version, a one-call torch equivalent where one exists, and
-              the bytes/operations bound. bitpack_groups_var, which no
-              encode path calls, gets program B's real AC tokens and must
-              also equal bitpack_groups_words
+              the bytes/operations bound. compact_rows and copy_sections
+              are held at every shape the encode launches them at (program
+              A's tokens, program B's AC and DC word rows, the AC and DC
+              sections); their one-call equivalent is zero_() + index_put_.
+              bitpack_groups_var, which no encode path calls, gets program
+              B's real AC tokens and must also equal bitpack_groups_words
   4. encode   the 8 MP encode at the default configuration through the
               public entry point: every kernel of the path must have
               launched, and the bytes must equal the same encode through
@@ -59,12 +62,16 @@ def log(msg):
 
 
 def cuda_time_ms(fn, reps, warm=2):
+    """Device time of one call: CUDA events around `reps` calls queued behind
+    a spin kernel (~1.5 ms), so that the host's call overhead, which is more
+    than the smallest kernels take, stays out of the time."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(3_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -138,10 +145,15 @@ def main():
     log(f"build: {len(libs)} libraries ({', '.join(sorted(libs))}) in "
         f"{time.time() - t0:.1f} s")
 
+    from jxl_tiny_tpu_torch import constants as C
     from jxl_tiny_tpu_torch.common import EncoderConfig, compute_distance_params
     from jxl_tiny_tpu_torch.encoder import encode_image_device
+    from jxl_tiny_tpu_torch.entropy.entropy_write import (
+        build_ac_device_code, build_dc_device_code,
+    )
     from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import aq_kernel as AQ
+    from jxl_tiny_tpu_torch.ops import dc_kernels as DK
     from jxl_tiny_tpu_torch.ops import pack_kernels as PK
     from jxl_tiny_tpu_torch.ops import pipeline as PL
     from jxl_tiny_tpu_torch.ops import quantize_kernel as QK
@@ -290,41 +302,84 @@ def main():
            "jxl_tiny_tpu/ops/tokenize_kernel.py:108", err, ms, pms,
            *bound(n * 128 * 4 * 2 + n * 4, n * 128 * 30), None)
 
-    # Row compaction (program A's token stream).
+    # Row compaction and section copy, at every shape the encode launches
+    # them at. library_ms is the one-call torch equivalent of the whole
+    # function: zero_() + index_put_ on a preallocated buffer, with the
+    # indices precomputed (index_put_ alone, which leaves the zero fill out,
+    # is logged beside it).
+    def library_times(buf, idx, vals, want, what, reps):
+        if not torch.equal(buf.zero_().index_put_(idx, vals), want):
+            fail(f"{what}: the zero_ + index_put_ yardstick computes something else")
+        pair = cuda_time_ms(lambda: buf.zero_().index_put_(idx, vals), reps)
+        alone = cuda_time_ms(lambda: buf.index_put_(idx, vals), reps)
+        return pair, alone
+
+    def hold_compact_rows(label, rows_tok, cnt, cap):
+        """Kernel against plain version (exits on any mismatch) and yardstick
+        on one call's tensors; returns the stream and the record's numbers."""
+        ng = rows_tok.shape[0]
+        start = torch.cumsum(cnt, 1, dtype=torch.int64) - cnt
+        s_k = PK.compact_rows(rows_tok, cnt, start, cap)
+        s_p = PK.compact_rows_plain(rows_tok, cnt, start, cap)
+        err = compare(f"compact_rows ({label})", [s_k], [s_p])
+        lane = torch.arange(128, device=dev)
+        pos = start[..., None] + lane
+        msk = (lane < cnt[..., None]) & (pos < cap)
+        gi = torch.arange(ng, device=dev)[:, None, None].expand_as(pos)
+        idx, vals = (gi[msk], pos[msk]), rows_tok[msk]
+        lms, lms_alone = library_times(torch.empty_like(s_k), idx, vals, s_k,
+                                       f"compact_rows ({label})", 20)
+        ms = cuda_time_ms(lambda: PK.compact_rows(rows_tok, cnt, start, cap), 20)
+        pms = cuda_time_ms(lambda: PK.compact_rows_plain(rows_tok, cnt, start, cap), 3, 1)
+        nplaced = int(vals.numel())
+        b_ms, b_by = bound(cnt.numel() * 12 + nplaced * 4 + s_k.numel() * 4, nplaced * 4)
+        log(f"  compact_rows ({label}): rows {list(rows_tok.shape)} cap {cap}, "
+            f"{nplaced} words placed, {int((cnt == 0).sum())} empty rows: kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, zero_ + index_put_ {lms:.4f} ms "
+            f"(index_put_ alone {lms_alone:.4f} ms), bound {b_ms:.4f} ms ({b_by}) "
+            f"[{card}]")
+        return s_k, (err, ms, pms, b_ms, b_by, lms)
+
+    def hold_copy_sections(label, packed, bits, wcap):
+        ng, ow_ = packed.shape
+        nblk = (bits + 4095) // 4096
+        offs = torch.cumsum(nblk * 128, 0) - nblk * 128
+        b_k = PK.copy_sections(packed, nblk, offs, wcap)
+        b_p = PK.copy_sections_plain(packed, nblk, offs, wcap)
+        err = compare(f"copy_sections ({label})", [b_k], [b_p])
+        wi = torch.arange(ow_, device=dev)[None, :]
+        dst = offs[:, None] + wi
+        cm = (wi < nblk[:, None] * 128) & (dst < wcap)
+        dsel, psel = dst[cm], packed[cm]
+        lms, lms_alone = library_times(torch.empty_like(b_k), (dsel,), psel, b_k,
+                                       f"copy_sections ({label})", 50)
+        ms = cuda_time_ms(lambda: PK.copy_sections(packed, nblk, offs, wcap), 50)
+        pms = cuda_time_ms(lambda: PK.copy_sections_plain(packed, nblk, offs, wcap), 5, 1)
+        ncopy = int(psel.numel())
+        b_ms, b_by = bound(ng * 16 + ncopy * 4 + wcap * 4, 0)
+        log(f"  copy_sections ({label}): packed {list(packed.shape)} wcap {wcap}, "
+            f"{ncopy} words copied: kernel {ms:.4f} ms, plain {pms:.4f} ms, zero_ + "
+            f"index_put_ {lms:.4f} ms (index_put_ alone {lms_alone:.4f} ms), bound "
+            f"{b_ms:.4f} ms ({b_by}) [{card}]")
+        return err, ms, pms, b_ms, b_by, lms
+
+    def sections_wcap(ng, ow_):  # the encoder's buffer size rule
+        return min(1 << int(ng * ow_).bit_length(), 2 * 1024 * 1024)
+
+    # (a) Program A's token stream: the record's shape.
     count_em = torch.where(em(first_b), 1 + torch.clamp_min(
         em(m["lastnz"]) - em(cov_b) + 1, 0), 0).to(torch.int32)
     rows_tok = tok_k.reshape(g, -1, 128)
     cnt = count_em.reshape(g, -1).contiguous()
-    start = torch.cumsum(cnt, 1, dtype=torch.int64) - cnt
-    total_max = int((start[:, -1] + cnt[:, -1]).max())
-    cap = next(c for c in (32768, 65536, 131072, 262144) if total_max <= c)
-    s_k = PK.compact_rows(rows_tok, cnt, start, cap)
-    s_p = PK.compact_rows_plain(rows_tok, cnt, start, cap)
-    err = compare("compact_rows", [s_k], [s_p])
-    lane = torch.arange(128, device=dev)
-    pos = start[..., None] + lane
-    msk = (lane < cnt[..., None]) & (pos < cap)
-    gi = torch.arange(g, device=dev)[:, None, None].expand_as(pos)
-    idx = (gi[msk], pos[msk])
-    vals = rows_tok[msk]
-    lib_out = torch.zeros((g, cap + 128), dtype=torch.int32, device=dev)
-    if not torch.equal(lib_out.index_put_(idx, vals), s_k):
-        fail("compact_rows: the index_put_ yardstick computes another stream")
-    ms = cuda_time_ms(lambda: PK.compact_rows(rows_tok, cnt, start, cap), 20)
-    pms = cuda_time_ms(lambda: PK.compact_rows_plain(rows_tok, cnt, start, cap), 3, 1)
-    lms = cuda_time_ms(lambda: lib_out.index_put_(idx, vals), 20)
-    ntok = int(cnt.sum())
+    totals = cnt.sum(1, dtype=torch.int64)
+    cap = next(c for c in (32768, 65536, 131072, 262144) if int(totals.max()) <= c)
+    s_k, nums = hold_compact_rows("program A tokens", rows_tok, cnt, cap)
     record("compact_rows", "jxl_tiny_tpu_torch/csrc/compact.cu",
-           "jxl_tiny_tpu/ops/pack_kernels.py:144", err, ms, pms,
-           *bound(cnt.numel() * 12 + ntok * 4 + g * (cap + 128) * 4, ntok * 4),
-           lms)
+           "jxl_tiny_tpu/ops/pack_kernels.py:144", *nums)
 
-    # Section copy (program B's AC sections, first code pass).
+    # (b) Program B's AC word rows and AC sections (first code pass).
     stream = s_k[:, :cap].contiguous()
-    totals = start[:, -1] + cnt[:, -1]
     hist = PK.hist_base64(stream, totals).cpu().numpy()
-    from jxl_tiny_tpu_torch.entropy.entropy_write import build_ac_device_code
-
     _, d_table = build_ac_device_code(hist, PK.ac_base64_map())
     d_table = torch.from_numpy(d_table).to(dev)
     data, nbits = PK.token_data_bits(stream, totals, d_table)
@@ -333,28 +388,32 @@ def main():
     need = int((ends[:, -1].max() + 31) // 32)
     while need > PK.var_safe_words(ow):
         ow = {8192: 32768, 32768: 131072}[ow]
+    w_rows, w_cnt, _ = PK.word_rows(data, nbits, ends - nbits)
+    hold_compact_rows("program B AC words", w_rows, w_cnt, ow)
     packed = PK.bitpack_groups_words(data, nbits, ends - nbits, ow)
-    bits = ends[:, -1]
-    nblk = (bits + 4095) // 4096
-    offs = torch.cumsum(nblk * 128, 0) - nblk * 128
-    wcap = min(1 << int(g * ow).bit_length(), 2 * 1024 * 1024)
-    b_k = PK.copy_sections(packed, nblk, offs, wcap)
-    b_p = PK.copy_sections_plain(packed, nblk, offs, wcap)
-    err = compare("copy_sections", [b_k], [b_p])
-    wi = torch.arange(ow, device=dev)[None, :]
-    dst = offs[:, None] + wi
-    cm = (wi < nblk[:, None] * 128) & (dst < wcap)
-    dsel, psel = dst[cm], packed[cm]
-    lbuf = torch.zeros((wcap,), dtype=torch.int32, device=dev)
-    if not torch.equal(lbuf.index_put_((dsel,), psel), b_k):
-        fail("copy_sections: the index_put_ yardstick computes another buffer")
-    ms = cuda_time_ms(lambda: PK.copy_sections(packed, nblk, offs, wcap), 50)
-    pms = cuda_time_ms(lambda: PK.copy_sections_plain(packed, nblk, offs, wcap), 5, 1)
-    lms = cuda_time_ms(lambda: lbuf.index_put_((dsel,), psel), 50)
-    ncopy = int(cm.sum())
+    nums = hold_copy_sections("AC sections", packed, ends[:, -1], sections_wcap(g, ow))
     record("copy_sections", "jxl_tiny_tpu_torch/csrc/compact.cu",
-           "jxl_tiny_tpu/ops/pack_kernels.py:880", err, ms, pms,
-           *bound(g * 16 + ncopy * 4 + wcap * 4, 0), lms)
+           "jxl_tiny_tpu/ops/pack_kernels.py:880", *nums)
+
+    # (c) Program B's DC word rows and DC sections, at both sizes the 8 MP
+    # encode dispatches them with (the first one overflows and is retried).
+    layout, dchist = PL.dc_layout_from_maps(
+        m["quant_dc"], raw_qf, strategy, is_first, ytox, ytob, ysize=h, xsize=w,
+        tables=tables)
+    _, d_table_dc = build_dc_device_code(dchist.cpu().numpy()[: C.NUM_DC_CONTEXTS])
+    dc_data, dc_nbits = DK.dc_token_data_bits(layout, torch.from_numpy(d_table_dc).to(dev))
+    dc_ends = torch.cumsum(dc_nbits, 1)
+    dc_pos = dc_ends - dc_nbits
+    d_rows, d_cnt, _ = PK.word_rows(dc_data, dc_nbits, dc_pos, prefix_valid=False)
+    gd = layout.shape[0]
+    for ow_dc in (8192, 32768):
+        hold_compact_rows(f"program B DC words, ow {ow_dc}", d_rows, d_cnt, ow_dc)
+        packed_dc = PK.bitpack_groups_words(dc_data, dc_nbits, dc_pos, ow_dc,
+                                            prefix_valid=False)
+        hold_copy_sections(f"DC sections, ow {ow_dc}", packed_dc, dc_ends[:, -1],
+                           sections_wcap(gd, ow_dc))
+    del (layout, dc_data, dc_nbits, dc_ends, dc_pos, d_rows, d_cnt, packed_dc,
+         w_rows, w_cnt)
 
     # Token bit packer on the same AC tokens (off every encode path).
     bpos = ends - nbits
@@ -373,8 +432,7 @@ def main():
            *bound(3 * data.numel() * 4 + w_k.numel() * 4, data.numel() * 6), None)
     ac_stream, ac_totals, ac_table = stream, totals, d_table
     del (groups, xyb, coef8, c8, coef_v, coef_h, m, x, tok_k, tok_p, rows_tok,
-         s_k, s_p, outs_k, outs_p, pos, msk, gi, idx, vals, lib_out, data, nbits,
-         e_args, w_k, w_p, bpos, packed)
+         s_k, outs_k, outs_p, data, nbits, e_args, w_k, w_p, bpos, packed)
     torch.cuda.empty_cache()
 
     # -- 4. the 8 MP encode through the public entry point ------------------

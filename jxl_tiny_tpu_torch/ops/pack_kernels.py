@@ -16,8 +16,8 @@ travel as int32 tensors; section words are 32-bit patterns, so the bit
 arithmetic runs in int64 and `u32_to_i32` stores the pattern. The TPU's
 one-hot matmul lookups and histograms become integer indexing and
 bincount, and its row-merge and log-shift left-pack preconditioners for
-the placement kernel are not needed: the CUDA kernel stores each token at
-its own position.
+the placement kernel are not needed: the CUDA kernel finds each output
+position's row in the prefix sum and gathers its token.
 """
 import numpy as np
 import torch
@@ -225,21 +225,16 @@ def left_pack(val, keep):
     return out[..., :n]
 
 
-def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
-    """Vector bit packer (the JAX package's bitpack_groups_words contract).
-
-    data/nbits/pos: [G, cap] int64 per-token LSB-first bit patterns
-    (nbits <= 28), widths and absolute bit positions (invalid tokens:
-    nbits 0). Returns packed words [G, ow] i32 (uint32 bit patterns, zero
-    beyond the section's words).
+def word_rows(data, nbits, pos, prefix_valid=True):
+    """The torch passes of bitpack_groups_words, up to the placement.
 
     Every output word holds at least one token start, so each word's value
     is a segmented OR over the tokens starting in it (lo parts) plus the
     spill of the token before (hi part): the same doubling OR-scan as the
     JAX package. The words found at each 128-token row's word ends are
-    left-packed per row and placed into the dense word stream by the
-    compact_rows kernel; prefix_valid as in the JAX package (False: zero
-    width tokens may interleave, as in the DC layout)."""
+    left-packed per row. Returns (rows [G, cap/128, 128] i32, counts
+    [G, cap/128] i32: what compact_stream places; spill [G] i64: the hi
+    part of the stream's last token, 0 if it spills into no word)."""
     g, cap = data.shape
     if cap % W:
         raise ValueError("bitpack_groups_words: cap must be a multiple of 128")
@@ -276,8 +271,22 @@ def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
     rows = cap // W
     er = e.reshape(g, rows, W)
     vr = torch.where(e, v, 0).reshape(g, rows, W)
-    words_rows = u32_to_i32(left_pack(vr, er))
-    counts = er.sum(dim=-1, dtype=torch.int32)
+    return u32_to_i32(left_pack(vr, er)), er.sum(dim=-1, dtype=torch.int32), spill_v
+
+
+def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
+    """Vector bit packer (the JAX package's bitpack_groups_words contract).
+
+    data/nbits/pos: [G, cap] int64 per-token LSB-first bit patterns
+    (nbits <= 28), widths and absolute bit positions (invalid tokens:
+    nbits 0). Returns packed words [G, ow] i32 (uint32 bit patterns, zero
+    beyond the section's words).
+
+    The rows of words that word_rows finds are placed into the dense word
+    stream by the compact_rows kernel; prefix_valid as in the JAX package
+    (False: zero width tokens may interleave, as in the DC layout)."""
+    words_rows, counts, spill_v = word_rows(data, nbits, pos, prefix_valid)
+    g, dev = data.shape[0], data.device
     words, wtotals = compact_stream(words_rows, counts, ow, kernels)
     words = words[:, :ow].contiguous()
     gi = torch.arange(g, device=dev)
@@ -377,14 +386,20 @@ class _CopySections:
 
     def __call__(self, packed, nblk, offs, wcap):
         """packed: [G, ow] i32 section words; nblk/offs: [G] i64 128-word
-        block counts and destination word offsets. Returns [wcap] i32: each
-        group's blocks at its offset, zero elsewhere."""
+        block counts and destination word offsets (the exclusive prefix sum
+        of nblk * 128). Returns [wcap] i32: each group's blocks at its
+        offset, zero elsewhere. The kernel moves whole 128-word blocks, so
+        for a CUDA tensor ow and wcap must be multiples of 128."""
         if not packed.is_cuda:
             return copy_sections_plain(packed, nblk, offs, wcap)
         g, ow = packed.shape
         require(packed, torch.int32, (g, ow), "copy_sections packed")
         require(nblk, torch.int64, (g,), "copy_sections nblk")
         require(offs, torch.int64, (g,), "copy_sections offs")
+        if ow % W or wcap % W:
+            raise ValueError("copy_sections: ow and wcap must be multiples of 128")
+        if packed.data_ptr() % 16:
+            raise ValueError("copy_sections packed: expected 16-byte alignment")
         buf = torch.empty((wcap,), dtype=torch.int32, device=packed.device)
         lib = load("compact", _bind_compact)
         check(

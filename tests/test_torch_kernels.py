@@ -142,6 +142,71 @@ def _rows(seed, g, over_cap=False, rows=1024):
     return tok, cnt
 
 
+ROW_CASES = ["zero_runs", "all_full", "empty_group", "tile_multiple", "over_cap",
+             "fat_few_groups"]
+
+
+def _rows_case(case):
+    """(tok, cnt, cap) for the inputs the output-driven placement kernel is
+    sensitive to; its tiles are 1024 positions. zero_runs: hundreds of empty
+    rows between the rows that hold tokens; all_full: every row at 128 and
+    the total equal to the cap; empty_group: a group with total 0 between
+    two others; tile_multiple: totals of exactly 1024, 2048 and 3072;
+    over_cap: the last group beyond the cap; fat_few_groups: four groups of
+    rows at 100-128 words (program B's DC word rows)."""
+    rng = np.random.RandomState(21 + ROW_CASES.index(case))
+    g, rows, cap = 3, 256, 4096
+    cnt = rng.poisson(4.0, size=(g, rows)).clip(0, 128).astype(np.int32)
+    cnt[rng.rand(g, rows) < 0.4] = 0
+    if case == "zero_runs":
+        cnt[:, 3:200] = 0
+        cnt[:, 206:255] = 0
+        cnt[1, 200:206] = [128, 1, 0, 77, 128, 33]
+        cnt[2, :255] = 0  # only the last row holds tokens
+        cnt[2, 255] = 90
+    elif case == "all_full":
+        rows = 32
+        cnt = np.full((g, rows), 128, np.int32)
+    elif case == "empty_group":
+        cnt[1] = 0
+    elif case == "tile_multiple":
+        cnt[:, ::5] = 128  # enough tokens for the largest total
+        for k in range(g):
+            want = 1024 * (k + 1)
+            ends = np.cumsum(cnt[k])
+            last = int(np.searchsorted(ends, want, side="right"))
+            cnt[k, last:] = 0
+            cnt[k, last] = want - (ends[last - 1] if last else 0)
+            assert 0 <= cnt[k, last] <= 128 and cnt[k].sum() == want
+    elif case == "over_cap":
+        cnt[-1, :40] = 128
+    elif case == "fat_few_groups":
+        g, rows, cap = 4, 64, 8192
+        cnt = rng.randint(100, 129, size=(g, rows)).astype(np.int32)
+        cnt[rng.rand(g, rows) < 0.2] = 0
+        cnt[3, 10:] = 0  # a short group among long ones
+    tok = rng.randint(1, 1 << 22, size=(g, rows, 128)).astype(np.int32)
+    return tok, cnt, cap
+
+
+SECTION_CASES = ["first_empty", "middle_empty", "last_empty", "fills_ow", "one_group"]
+
+
+def _sections_case(case):
+    """(packed u32 [g, ow], bits, wcap) for compact_sections."""
+    rng = np.random.RandomState(31 + SECTION_CASES.index(case))
+    g, ow, wcap = (1 if case == "one_group" else 5), 1024, 8192
+    bits = rng.randint(1, 32 * (ow - 40), size=g).astype(np.int32)
+    if case.endswith("_empty"):
+        bits[{"first_empty": 0, "middle_empty": 2, "last_empty": g - 1}[case]] = 0
+    elif case == "fills_ow":
+        bits[1] = 32 * ow  # every word of the row, and its last block whole
+        bits[3] = 32 * ow - 31  # the last word holds one bit
+    packed = rng.randint(0, 1 << 32, size=(g, ow), dtype=np.uint64).astype(np.uint32)
+    packed[np.arange(ow)[None, :] >= ((bits + 31) // 32)[:, None]] = 0
+    return packed, bits, wcap
+
+
 def _dc_maps(seed=4):
     rng = np.random.RandomState(seed)
     pd = DK.PD
@@ -305,6 +370,56 @@ def test_compact_sections_matches_jax(jx):
                                torch.from_numpy(bits), wcap)
     assert np.array_equal(u32(b), np.asarray(jb))
     assert np.array_equal(o.numpy(), np.asarray(jo))
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+@pytest.mark.parametrize("variant", ["classic", "hier"])
+def test_compact_stream_cases_match_jax(jx, variant, case):
+    """Row compaction on the inputs an output-driven placement is sensitive
+    to, against both Pallas compaction kernels: streams and totals exact
+    (the over-cap group below cap-128, as above)."""
+    tok, cnt, cap = _rows_case(case)
+    fn = jx.PK.compact_stream if variant == "classic" else jx.PK.compact_stream_hier
+    js, jt = fn(jx.jnp.asarray(tok.view(np.uint32)), jx.jnp.asarray(cnt), cap)
+    js, jt = np.asarray(js), np.asarray(jt)
+    s, t = PK.compact_stream(torch.from_numpy(tok), torch.from_numpy(cnt), cap)
+    s = u32(s)
+    assert np.array_equal(t.numpy(), jt)
+    assert (jt > cap).any() == (case == "over_cap")
+    for k in range(len(jt)):
+        keep = cap + 128 if jt[k] <= cap else cap - 128
+        assert np.array_equal(s[k, :keep], js[k, :keep]), k
+        assert not s[k, min(int(jt[k]), cap):].any()
+
+
+@pytest.mark.parametrize("case", SECTION_CASES)
+def test_compact_sections_cases_match_jax(jx, case):
+    """Section copy with empty sections at either end and in the middle, a
+    section that fills its [ow] row, and a single group: buffer and offsets
+    exact."""
+    packed, bits, wcap = _sections_case(case)
+    jb, jo = jx.PK.compact_sections(jx.jnp.asarray(packed), jx.jnp.asarray(bits), wcap)
+    b, o = PK.compact_sections(torch.from_numpy(packed.view(np.int32)),
+                               torch.from_numpy(bits), wcap)
+    assert np.array_equal(u32(b), np.asarray(jb))
+    assert np.array_equal(o.numpy(), np.asarray(jo))
+    nblk = (bits.astype(np.int64) + 4095) // 4096
+    assert not u32(b)[int(nblk.sum()) * 128:].any()
+
+
+def test_copy_sections_plain_takes_unaligned_sizes():
+    """The plain version (what a CPU tensor gets) has no 128-word rule for
+    ow and wcap; sections past wcap are cut."""
+    rng = np.random.RandomState(41)
+    packed = torch.from_numpy(rng.randint(1, 1 << 20, size=(3, 200)).astype(np.int32))
+    nblk = torch.tensor([1, 2, 1])
+    offs = torch.tensor([0, 128, 384])
+    buf = PK.copy_sections(packed, nblk, offs, 500)
+    want = np.zeros(500, np.int32)
+    want[0:128] = packed[0, :128].numpy()
+    want[128:328] = packed[1, :200].numpy()  # the row ends before its second block does
+    want[384:500] = packed[2, :116].numpy()
+    assert np.array_equal(buf.numpy(), want)
 
 
 def _stream_and_table(seed=7, g=3, cap=2048):
@@ -670,22 +785,65 @@ def test_tokenize_kernel_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_compact_rows_kernel_on_card(cuda):
-    tok, cnt = _rows(5, 2, over_cap=True)
+@pytest.mark.parametrize("case", ["mixed_over_cap", "many_rows"] + ROW_CASES)
+def test_compact_rows_kernel_on_card(cuda, case):
+    if case == "mixed_over_cap":
+        tok, cnt = _rows(5, 2, over_cap=True)
+        cap = 32768
+    elif case == "many_rows":  # more rows than one staged chunk, sparse
+        tok, cnt = _rows(6, 2, rows=6144)
+        cnt[1, 100:6000] = 0
+        cap = 32768
+    else:
+        tok, cnt, cap = _rows_case(case)
     tok, cnt = torch.from_numpy(tok).to(cuda), torch.from_numpy(cnt).to(cuda)
-    got = PK.compact_stream(tok, cnt, 32768)
-    want = PK.compact_stream(tok, cnt, 32768, kernels=False)
+    before = PK.compact_rows.launches
+    got = PK.compact_stream(tok, cnt, cap)
+    torch.cuda.synchronize()
+    assert PK.compact_rows.launches == before + 1
+    want = PK.compact_stream(tok, cnt, cap, kernels=False)
     assert _same(got[0], want[0]) and _same(got[1], want[1])
 
 
 @pytest.mark.gpu
-def test_copy_sections_kernel_on_card(cuda):
-    d, n, pos = (t.to(cuda) for t in _ac_bits())
-    packed = PK.bitpack_groups_words(d, n, pos, 8192)
-    bits = n.sum(1)
-    got = PK.compact_sections(packed, bits, 65536)
-    want = PK.compact_sections(packed, bits, 65536, kernels=False)
+@pytest.mark.parametrize("case", ["ac_bits", "overflowing_rows", "many_groups"]
+                         + SECTION_CASES)
+def test_copy_sections_kernel_on_card(cuda, case):
+    if case == "ac_bits":
+        d, n, pos = (t.to(cuda) for t in _ac_bits())
+        packed, bits, wcap = PK.bitpack_groups_words(d, n, pos, 8192), n.sum(1), 65536
+    else:
+        if case == "overflowing_rows":  # sections longer than their rows, and than wcap
+            packed, bits, wcap = _sections_case("fills_ow")
+            bits = bits + 32 * 1024
+            wcap = 4096
+        elif case == "many_groups":  # more groups than the kernel keeps in shared memory
+            rng = np.random.RandomState(51)
+            packed = rng.randint(0, 1 << 32, size=(700, 256), dtype=np.uint64).astype(np.uint32)
+            bits = rng.randint(0, 32 * 256 + 1, size=700).astype(np.int32)
+            wcap = 65536
+        else:
+            packed, bits, wcap = _sections_case(case)
+        packed = torch.from_numpy(packed.view(np.int32)).to(cuda)
+        bits = torch.from_numpy(bits).to(cuda)
+    before = PK.copy_sections.launches
+    got = PK.compact_sections(packed, bits, wcap)
+    torch.cuda.synchronize()
+    assert PK.copy_sections.launches == before + 1
+    want = PK.compact_sections(packed, bits, wcap, kernels=False)
     assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ow,wcap", [(200, 1024), (256, 1000)])
+def test_copy_sections_raises_on_unaligned_sizes(cuda, ow, wcap):
+    """The kernel moves whole 128-word blocks: the wrapper refuses other
+    sizes for a CUDA tensor and does not give way to the plain version."""
+    packed = torch.zeros((2, ow), dtype=torch.int32, device=cuda)
+    nblk = torch.tensor([1, 1], device=cuda)
+    offs = torch.tensor([0, 128], device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        PK.copy_sections(packed, nblk, offs, wcap)
 
 
 @pytest.mark.gpu
