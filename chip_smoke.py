@@ -10,9 +10,14 @@ Phases (any failure exits non-zero at once):
               on testdata/photo8mp.pfm (3840x2160, 135 groups; real strategy
               maps and 16x8 / 8x16 coefficient sets) and hold its output
               against its plain torch version (exact; the quantizer and
-              the tokenizer also on an all-DCT8 map); time kernel, plain
+              the tokenizer also on an all-DCT8 map; aq_field and
+              quantize_cells also at their edges: one group, three, no
+              colour modulation, pixels beyond the kernel's in-range
+              division, all three strategies inside a group, values at the
+              clamps); time kernel (quantize_cells on both maps), plain
               version, a one-call torch equivalent where one exists, and
-              the bytes/operations bound. compact_rows and copy_sections
+              the bytes/operations bound; then time program A's stages one
+              by one. compact_rows and copy_sections
               are held at every shape the encode launches them at (program
               A's tokens, program B's AC and DC word rows, the AC and DC
               sections); their one-call equivalent is zero_() + index_put_.
@@ -205,6 +210,23 @@ def main():
            *bound(xyb.numel() * 4 + 3 * g * 1024 * 4 + kv.numel() * 4, npx * 150),
            None)
 
+    # aq_field at its edges: one group, three, the colour modulation off
+    # (distance 5), and pixels beyond the range of the kernel's in-range
+    # division and square root (those rows take the compiler's own).
+    big, large = xyb[:2].clone(), xyb[:2].clone()
+    big[:, :, 60:131, 30:97] *= 2.0e5
+    large[:, :, 60:131, 30:97] *= 2.0e4
+    for label, t, d in (("1 group", xyb[:1], DIST), ("3 groups", xyb[5:8], DIST),
+                        ("2 groups, d=5, no colour modulation", xyb[:2], 5.0),
+                        ("2 groups, pixels beyond the fast range", big, DIST),
+                        ("2 groups, large pixels inside the fast range", large, DIST)):
+        c_e, color_e = AQ.aq_constants(d)
+        if color_e != (d == DIST):
+            fail(f"aq_field ({label}): unexpected colour flag {color_e}")
+        compare(f"aq_field ({label})", AQ.aq_field(t.contiguous(), d),
+                AQ.aq_field_plain(t.contiguous(), c_e, color_e))
+    del big, large
+
     # Strategy estimates (kernel E), on the real DCTs and AQ maps.
     qf, masking, raw_qf = AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)
     blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
@@ -260,7 +282,34 @@ def main():
     outs_p = QK.quantize_cells_plain(*q_args)
     err = max(err8, compare("quantize_cells", outs_k, outs_p))
     ms = cuda_time_ms(lambda: QK.quantize_cells(*q_args), 20)
+    ms8 = cuda_time_ms(lambda: QK.quantize_cells(*q8_args), 20)
+    log(f"  quantize_cells on both maps: real strategy map {ms:.4f} ms, all-DCT8 "
+        f"map {ms8:.4f} ms [{card}]")
     pms = cuda_time_ms(lambda: QK.quantize_cells_plain(*q_args), 3, 1)
+
+    # quantize_cells at its edges: one group; all three strategies inside
+    # each group, cell by cell (pairs that disagree); values at the clamps.
+    def q_edge(label, n, strat=None, gain=1.0):
+        coefs = [a[:n] * gain for a in q_args[:3]]
+        maps = [a[:n].contiguous() for a in q_args[3:7]]
+        if strat is not None:
+            maps[0] = strat
+        args = (*coefs, *maps, *q_args[7:])
+        outs = QK.quantize_cells(*args)
+        compare(f"quantize_cells ({label})", outs, QK.quantize_cells_plain(*args))
+        return outs
+
+    q_edge("1 group", 1)
+    mixed = torch.randint(0, 3, (2, 32, 32), generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int32).to(dev)
+    if any(int((mixed[i] == k).sum()) == 0 for i in range(2) for k in range(3)):
+        fail("quantize_cells: the mixed map lacks a strategy in a group")
+    q_edge("2 groups, all three strategies in each", 2, strat=mixed)
+    clamped = q_edge("2 groups, coefficients x 1e6", 2, gain=1.0e6)
+    top = int(clamped[0].abs().max()), int(clamped[2].abs().max())
+    if top != (32767, 16383):
+        fail(f"quantize_cells: the scaled coefficients did not reach the clamps: {top}")
+    del clamped, mixed
     cells = g * 1024
     # Each cell needs its strategy's 3 x 64 coefficients (from one of the
     # three sets) + per-cell maps; ordered + nz/lastnz/qdc go out.
@@ -414,6 +463,46 @@ def main():
                            sections_wcap(gd, ow_dc))
     del (layout, dc_data, dc_nbits, dc_ends, dc_pos, d_rows, d_cnt, packed_dc,
          w_rows, w_cnt)
+
+    # Program A stage by stage (ops/pipeline.analyze_image_packed's calls in
+    # order, on this image's tensors; device time by CUDA events, 3 calls
+    # each): where its time goes outside the five kernels.
+    sc3 = (distp.scale, distp.scale_dc, distp.x_qm_mul)
+    stage_fns = (
+        ("extract_groups", lambda: PL.extract_groups_device(up)),
+        ("to_xyb", lambda: PL.to_xyb(groups.to(torch.float32))),
+        ("adaptive_quant_field (aq_field + log2/exp2 tail)",
+         lambda: AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)),
+        ("dct2d_8x8", lambda: dct2d_8x8(
+            xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5), tables.dct8)),
+        ("compute_cmap", lambda: PL.compute_cmap(coef8, valid)),
+        ("compute_ac_strategy (16x8 / 8x16 DCTs + estimate_partials + decisions)",
+         lambda: PL.compute_ac_strategy(coef8, qf, masking, ytox, ytob,
+                                        distp.distance, yb, xb, tables)),
+        ("adjust_quant_field", lambda: PL.adjust_quant_field(strategy, is_first, raw_qf8)),
+        ("encode_middle (quantize_cells + context maps)",
+         lambda: PL.encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf,
+                                  ytox, ytob, *sc3, tables, kernels=True)),
+        ("tokenize_cells (row meta + tokenize_rows)",
+         lambda: TK.tokenize_cells(
+             m["ordered"], em(cov_b), em(m["nzeros_total"]), em(m["block_ctx"]),
+             em(m["nzero_ctx"]), em(m["prev_init"]), em(first_b), tables, True)),
+        ("token counts + compact_stream (compact_rows)",
+         lambda: PK.compact_stream(
+             rows_tok, torch.where(em(first_b), 1 + torch.clamp_min(
+                 em(m["lastnz"]) - em(cov_b) + 1, 0), 0).to(torch.int32).reshape(g, -1),
+             cap, True)),
+        ("hist_base64", lambda: PK.hist_base64(stream, torch.clamp_max(totals, cap))),
+        ("pack_meta_u8", lambda: PL.pack_meta_u8(m["quant_dc"], raw_qf, strategy,
+                                                 is_first, ytox, ytob)),
+        ("dc_layout_from_maps (+ dc_hist)",
+         lambda: PL.dc_layout_from_maps(m["quant_dc"], raw_qf, strategy, is_first,
+                                        ytox, ytob, ysize=h, xsize=w, tables=tables)),
+    )
+    stage_ms = {name: cuda_time_ms(fn, 3, 1) for name, fn in stage_fns}
+    log(f"program A stages photo8mp (CUDA events, ms): "
+        f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}; sum "
+        f"{sum(stage_ms.values()):.3f} ms [{card}]")
 
     # Token bit packer on the same AC tokens (off every encode path).
     bpos = ends - nbits

@@ -186,23 +186,24 @@ class _AQ:
         self.launches = 0
         self._consts = {}
 
-    def consts_on(self, distance, device):
-        key = (float(distance), str(device))
+    def consts_for(self, distance):
+        """(constants vector on the host, colour flag), made once a
+        distance: the launcher hands them to the kernel as a parameter, so
+        no call copies anything to the card."""
+        key = float(distance)
         if key not in self._consts:
-            vec, color = aq_constants(distance)
-            self._consts[key] = (torch.from_numpy(vec).to(device), color)
+            self._consts[key] = aq_constants(distance)
         return self._consts[key]
 
     def __call__(self, xyb, distance):
         """[G,3,256,256] f32 -> (val, gamma block sums, masking) [G,32,32].
 
         CPU tensors take the plain version; CUDA tensors launch the kernel."""
+        kvec, color = self.consts_for(distance)
         if not xyb.is_cuda:
-            vec, color = aq_constants(distance)
-            return aq_field_plain(xyb, vec, color)
+            return aq_field_plain(xyb, kvec, color)
         g = xyb.shape[0]
         require(xyb, torch.float32, (g, 3, 256, 256), "aq_field xyb")
-        kvec, color = self.consts_on(distance, xyb.device)
         val, gamma, mask = (
             torch.empty((g, 32, 32), dtype=torch.float32, device=xyb.device)
             for _ in range(3)
@@ -211,7 +212,7 @@ class _AQ:
         check(
             lib.aq_launch(
                 xyb.data_ptr(), val.data_ptr(), gamma.data_ptr(),
-                mask.data_ptr(), kvec.data_ptr(), g, int(color),
+                mask.data_ptr(), kvec.ctypes.data, g, int(color),
                 stream_ptr(xyb),
             ),
             "aq_field",

@@ -9,6 +9,8 @@ counts and the last nonzero scan position. All three strategies (DCT8,
 DCT16X8, DCT8X16) are handled. Only IEEE * / and round-half-even touch the
 floats, so the plain version matches the kernel exactly on the card.
 """
+import ctypes
+
 import numpy as np
 import torch
 
@@ -126,16 +128,39 @@ def quantize_cells_plain(coef8, coef_v, coef_h, strategy, raw_qf, fac_x, fac_b,
     )
 
 
+class _Params(ctypes.Structure):
+    """csrc/quantize.cu:Params."""
+
+    _fields_ = [("scalars", ctypes.c_float * 11), ("dc_pos", ctypes.c_int * 6)]
+
+
 def _bind(lib):
     lib.quantize_launch.argtypes = [P] * 15 + [I, P, P]
     lib.quantize_launch.restype = I
 
 
 class _Quantize:
-    """Kernel wrapper; `launches` counts kernel launches."""
+    """Kernel wrapper; `launches` counts kernel launches. The scalar block
+    of a quantization setting is made once, on the host (it goes to the
+    kernel as a parameter), and the tables in zig-zag order are buffers of
+    `tables`, so a call copies nothing to the card."""
 
     def __init__(self):
         self.launches = 0
+        self._params = {}
+
+    def params_for(self, scale, scale_dc, x_qm_mul, dc_pos):
+        key = (float(scale), float(scale_dc), float(x_qm_mul), dc_pos)
+        if key not in self._params:
+            k = quant_scalars(scale, scale_dc, x_qm_mul)
+            self._params[key] = _Params(
+                (ctypes.c_float * 11)(
+                    k["scale"], k["x_qm_mul"], *k["inv_factor"], k["cfl_b"],
+                    *k["bias"], k["sc"],
+                ),
+                (ctypes.c_int * 6)(*(p for pair in dc_pos for p in pair)),
+            )
+        return self._params[key]
 
     def __call__(self, coef8, coef_v, coef_h, strategy, raw_qf, fac_x, fac_b,
                  tables, scale, scale_dc, x_qm_mul):
@@ -161,12 +186,10 @@ class _Quantize:
         require(raw_qf, torch.int32, (g, 32, 32), "quantize raw_qf")
         require(fac_x, torch.float32, (g, 32, 32), "quantize fac_x")
         require(fac_b, torch.float32, (g, 32, 32), "quantize fac_b")
-        k = quant_scalars(scale, scale_dc, x_qm_mul)
-        kvec = torch.tensor(
-            [k["scale"], k["x_qm_mul"], *k["inv_factor"], k["cfl_b"],
-             *k["bias"], k["sc"]],
-            dtype=torch.float32,
-        ).to(dev)
+        for name in ("qm_zz", "thr_zz", "dqm_zz", "order_zz"):
+            if getattr(tables, name).device != dev:
+                raise ValueError(f"quantize tables.{name}: expected a tensor on {dev}")
+        params = self.params_for(scale, scale_dc, x_qm_mul, tables.dc_pos)
         ordered = torch.empty((g, 32, 32, 3, 128), dtype=torch.int32, device=dev)
         nz = torch.empty((g, 3, 32, 32), dtype=torch.int32, device=dev)
         qdc = torch.empty((g, 3, 2, 32, 32), dtype=torch.int32, device=dev)
@@ -176,11 +199,11 @@ class _Quantize:
             lib.quantize_launch(
                 coef8.data_ptr(), coef_v.data_ptr(), coef_h.data_ptr(),
                 strategy.data_ptr(), raw_qf.data_ptr(), fac_x.data_ptr(),
-                fac_b.data_ptr(), tables.qm_tab.data_ptr(),
-                tables.dqm_tab.data_ptr(), tables.thr_tab.data_ptr(),
-                tables.order_tab.data_ptr(), ordered.data_ptr(),
+                fac_b.data_ptr(), tables.qm_zz.data_ptr(),
+                tables.thr_zz.data_ptr(), tables.dqm_zz.data_ptr(),
+                tables.order_zz.data_ptr(), ordered.data_ptr(),
                 nz.data_ptr(), qdc.data_ptr(), lastnz.data_ptr(), g,
-                kvec.data_ptr(), stream_ptr(coef8),
+                ctypes.addressof(params), stream_ptr(coef8),
             ),
             "quantize_cells",
         )

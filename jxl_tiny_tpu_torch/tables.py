@@ -33,6 +33,33 @@ def _strategy_tables():
     return qm, dqm, thr, order
 
 
+def zigzag_tables(qm, dqm, thr, order):
+    """The quantizer's tables as csrc/quantize.cu reads them.
+
+    Lane l of a warp owns zig-zag positions 4l..4l+3 of a cell, so it wants
+    its table entries side by side: qm_zz, thr_zz [3,3,128] and dqm_zz
+    [3,128] (Y only) are qm / thr / dqm read through the order table
+    (`t_zz[s, c, j] = t[s, c, order[s, j]]`), and order_zz [3,32] i32 packs
+    the four natural indices of a lane, position 4l+e in byte e. dc_pos[s]
+    = the zig-zag positions of natural coefficients 0 and 1 (the DC pair's
+    inputs), plain host ints."""
+    order = np.asarray(order, np.int64)
+    s_idx = np.arange(3)[:, None, None]
+    c_idx = np.arange(3)[None, :, None]
+    idx = order[:, None, :]
+    q = order.reshape(3, 32, 4)
+    words = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24)
+    dc_pos = tuple(
+        tuple(int(np.flatnonzero(order[s] == k)[0]) for k in (0, 1)) for s in range(3)
+    )
+    return dict(
+        qm_zz=np.ascontiguousarray(np.asarray(qm)[s_idx, c_idx, idx]),
+        thr_zz=np.ascontiguousarray(np.asarray(thr)[s_idx, c_idx, idx]),
+        dqm_zz=np.ascontiguousarray(np.asarray(dqm)[np.arange(3)[:, None], 1, order]),
+        order_zz=words.astype(np.int32),
+    ), dc_pos
+
+
 def _nnz_ctx_steps():
     """COEFF_NNZ_CTX as a monotone step function (thresholds, deltas)."""
     lut = C.COEFF_NNZ_CTX.astype(np.int64).copy()
@@ -110,6 +137,12 @@ class EncoderTables(nn.Module):
         super().__init__()
         for name, arr in arrays.items():
             self.register_buffer(name, torch.from_numpy(np.array(arr)))
+        # Derived from the arrays given, so that they can never disagree.
+        zz, self.dc_pos = zigzag_tables(
+            arrays["qm_tab"], arrays["dqm_tab"], arrays["thr_tab"], arrays["order_tab"]
+        )
+        for name, arr in zz.items():
+            self.register_buffer(name, torch.from_numpy(arr))
         self.nnz_thresh0 = int(arrays["nnz_thresh"][0])
         self.grad_base0 = int(arrays["grad_base"][0])
         # The tokenizer's one-threshold NNZ context shortcut requires every

@@ -41,11 +41,13 @@ W = PK.W
 ROOT = _build.CSRC.parents[1]
 
 
-def build(name, source, consts=()):
-    """nvcc one compact.cu into a library of its own; `consts` are
-    NAME=VALUE replacements for the source's `constexpr int|bool NAME = ...;`
-    lines. Prints each kernel's registers and shared memory."""
-    out_dir = _build.BUILD_ROOT / "bench_compact"
+def build(name, source, consts=(), bind=PK._bind_compact, sub="bench_compact"):
+    """nvcc one kernel source into a library of its own (under the build
+    directory's `sub`); `consts` are NAME=VALUE replacements for the
+    source's `constexpr int|bool NAME = ...;` lines, `bind` sets the
+    launchers' argument types. Prints each kernel's registers and shared
+    memory."""
+    out_dir = _build.BUILD_ROOT / sub
     out_dir.mkdir(parents=True, exist_ok=True)
     text = open(source).read()
     for c in consts:
@@ -65,8 +67,15 @@ def build(name, source, consts=()):
         if "registers" in line:
             print(f"  [{name}] {line.strip()}")
     handle = ctypes.CDLL(str(lib))
-    PK._bind_compact(handle)
+    bind(handle)
     return handle
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def launch(lib, kind, args):
@@ -145,9 +154,7 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_compact: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
 
     tree_src = _build.CSRC / "compact.cu"

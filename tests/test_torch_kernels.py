@@ -745,6 +745,128 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# The decompositions the CUDA kernels use, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# csrc/aq.cu:erode's sorting network.
+_SORT9 = ((0, 3), (1, 7), (2, 5), (4, 8), (0, 7), (2, 4), (3, 8), (5, 6),
+          (0, 2), (1, 3), (4, 5), (7, 8), (1, 4), (3, 6), (5, 7), (0, 1),
+          (2, 4), (3, 5), (6, 8), (2, 3), (4, 5), (6, 7), (1, 2), (3, 4), (5, 6))
+
+
+def _aq_field_strips(xyb, consts, color, strip_blocks):
+    """csrc/aq.cu's decomposition in torch: each strip of `strip_blocks`
+    block rows is finished on its own from the pixel rows it loads, with
+    the one pre-erosion cell row above and below recomputed, every row and
+    cell index clamped at the group's edge (never at the strip's), the
+    erosion through the kernel's sorting network and the sums in the
+    pinned order."""
+    from jxl_tiny_tpu_torch.ops._ref import strided_sum
+
+    k = AQ._k(consts)
+    rod = AQ._ratio_of_derivatives
+    x_pl, y_pl, b_pl = xyb[:, 0], xyb[:, 1], xyb[:, 2]
+    cols = torch.arange(256)
+    lf, rt = (cols - 1).clamp_min(0), (cols + 1).clamp_max(255)
+    vals, gammas, masks = [], [], []
+    for strip in range(32 // strip_blocks):
+        cy0 = strip * 2 * strip_blocks
+        c_lo, c_hi = max(cy0 - 1, 0), min(cy0 + 2 * strip_blocks, 63)
+        rows = torch.arange(4 * c_lo, 4 * c_hi + 4)
+        up, dn = (rows - 1).clamp_min(0), (rows + 1).clamp_max(255)
+        yc, xc = y_pl[:, rows], x_pl[:, rows]
+        gammac = rod(yc + k["gamma_off"], False, k)
+
+        def diffsq(p, pc):
+            base = 0.25 * (p[:, dn] + p[:, up] + pc[:, :, lf] + pc[:, :, rt])
+            d = gammac * (pc - base)
+            return d * d
+
+        v = diffsq(y_pl, yc) + k["diff_x_w"] * diffsq(x_pl, xc)
+        diff = 0.25 * torch.sqrt((v * k["msq_mul"] + k["msq_add"]).double()).float()
+        pe = strided_sum(strided_sum(diff, 4, 2), 4, 1) * 0.25  # cell rows c_lo..c_hi
+
+        own = torch.arange(cy0, cy0 + 2 * strip_blocks)
+        ccol = torch.arange(64)
+        n = [pe[:, ((own + dy).clamp(0, 63) - c_lo)][:, :, (ccol + dx).clamp(0, 63)]
+             for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+        centre = n[4]
+        for a, b in _SORT9:
+            n[a], n[b] = torch.minimum(n[a], n[b]), torch.maximum(n[a], n[b])
+        ve = 0.05 * (centre + ((n[0] + n[1]) + (n[2] + n[3])))
+        aq = strided_sum(strided_sum(ve, 2, 2), 2, 1)
+        masks.append(1.0 / (aq + k["masking_add"]))
+        val = AQ._compute_mask(aq, k)
+
+        prow = torch.arange(8 * strip_blocks * strip, 8 * strip_blocks * (strip + 1))
+        yb, xb, bb = y_pl[:, prow], x_pl[:, prow], b_pl[:, prow]
+        right = torch.abs(yb - yb[:, :, rt])
+        right = torch.where((cols % 8 == 7)[None, None, :], torch.zeros_like(right), right)
+        down = torch.abs(yb - y_pl[:, (prow + 1).clamp_max(255)])
+        down = torch.where((prow % 8 == 7)[None, :, None], torch.zeros_like(down), down)
+        val = val + AQ._block_sums(right + down) * k["hf_mul"]
+        if color:
+            red = torch.clamp_max(torch.clamp_min(xb - k["red_off"], 0.0), k["red_max"])
+            blue = torch.clamp_max(
+                torch.clamp_min(bb - (yb + k["blue_off"]), 0.0), k["blue_max"])
+            red_cov = torch.clamp_max(AQ._block_sums(red), k["red_cap"])
+            blue_cov = torch.clamp_max(AQ._block_sums(blue), k["blue_cap"])
+            val = val + k["color_c1"] + red_cov * k["color_c2"] + blue_cov * k["color_c3"]
+        yo = yb + k["gamma_y_off"]
+        gammas.append(AQ._block_sums(
+            0.5 * (rod(yo - xb, True, k) + rod(yo + xb, True, k))))
+        vals.append(val)
+    return torch.cat(vals, 1), torch.cat(gammas, 1), torch.cat(masks, 1)
+
+
+@pytest.mark.parametrize("strip_blocks", [4, 2, 8])
+@pytest.mark.parametrize("distance", [1.0, 5.0])
+def test_aq_strip_decomposition_equals_plain(distance, strip_blocks):
+    """The AQ kernel's strips (halo cell rows recomputed, clamped at the
+    group's edge only, sorting network, pinned sum order) give aq_field_plain
+    bit for bit, with (distance 1) and without (distance 5) the colour
+    modulation, on groups whose rows and columns differ everywhere."""
+    xyb = torch.from_numpy(_xyb_groups())
+    assert (xyb[:, :, 1:] != xyb[:, :, :-1]).any(-1).all()
+    assert (xyb[:, :, :, 1:] != xyb[:, :, :, :-1]).any(-2).all()
+    consts, color = AQ.aq_constants(distance)
+    assert color == (distance == 1.0)
+    want = AQ.aq_field_plain(xyb, consts, color)
+    got = _aq_field_strips(xyb, consts, color, strip_blocks)
+    for name, a, b in zip(("val", "gamma", "masking"), got, want):
+        assert a.shape == b.shape == (2, 32, 32)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("strategy", [0, 1, 2], ids=["dct8", "dct16x8", "dct8x16"])
+def test_zigzag_tables_equal_order_tab_applied(strategy):
+    """The tables the quantize kernel reads (already in zig-zag order) are
+    order_tab applied to the natural ones, entry by entry."""
+    s = strategy
+    qm_zz, thr_zz, dqm_zz, order_zz = (
+        TABLES.qm_zz, TABLES.thr_zz, TABLES.dqm_zz, TABLES.order_zz)
+    dc_pos = TABLES.dc_pos
+    order = NP_TABLES["order_tab"][s]
+    assert sorted(order) == list(range(128))
+    for c in range(3):
+        assert np.array_equal(qm_zz[s, c].numpy(), NP_TABLES["qm_tab"][s, c][order])
+        assert np.array_equal(thr_zz[s, c].numpy(), NP_TABLES["thr_tab"][s, c][order])
+    assert np.array_equal(dqm_zz[s].numpy(), NP_TABLES["dqm_tab"][s, 1][order])
+    words = order_zz[s].numpy().view(np.uint32)
+    unpacked = np.stack([(words >> (8 * e)) & 0xFF for e in range(4)], axis=1)
+    assert np.array_equal(unpacked.reshape(-1), order)
+    assert [order[p] for p in dc_pos[s]] == [0, 1]
+    # What a lane of the kernel gathers equals the plain version's gather.
+    q = torch.arange(3 * 128, dtype=torch.float32).reshape(3, 128)
+    assert torch.equal(q[:, torch.from_numpy(unpacked.reshape(-1).astype(np.int64))],
+                       torch.gather(q, 1, TABLES.order_tab.long()[s].expand(3, 128)))
+    # The wrapper's scalar block is made once a quantization setting.
+    params = QK.quantize_cells.params_for(0.5, 0.25, 1.0, dc_pos)
+    assert QK.quantize_cells.params_for(0.5, 0.25, 1.0, dc_pos) is params
+    assert list(params.dc_pos) == [p for pair in dc_pos for p in pair]
+
+
+# ---------------------------------------------------------------------------
 # Kernels against their plain versions on the card
 # ---------------------------------------------------------------------------
 
@@ -755,24 +877,82 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
+def _xyb_seeded(g, seed=11):
+    """[g,3,256,256] XYB of seeded smooth-plus-noise groups, each different."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+    ph = rng.rand(g, 3, 1, 1).astype(np.float32) * 6.0
+    base = 0.45 + 0.35 * np.sin(xx * 0.04 + ph) * np.cos(yy * 0.03 - ph)
+    rgb = base + rng.randn(g, 3, 256, 256).astype(np.float32) * 0.03
+    return PL.to_xyb(torch.from_numpy(np.clip(rgb, 0, 1).astype(np.float32)))
+
+
+AQ_CARD_CASES = {"one_group": (1, 1.0), "three_groups": (3, 1.0),
+                 "odd_135_groups": (135, 1.0), "no_colour": (2, 5.0),
+                 "beyond_fast_range": (2, 1.0), "large_within_fast_range": (2, 1.0)}
+
+
 @pytest.mark.gpu
-def test_aq_kernel_on_card(cuda):
-    xyb = torch.from_numpy(_xyb_groups()).to(cuda)
-    consts, color = AQ.aq_constants(1.0)
-    got = AQ.aq_field(xyb, 1.0)
+@pytest.mark.parametrize("case", ["photo_and_synthetic"] + list(AQ_CARD_CASES))
+def test_aq_kernel_on_card(cuda, case):
+    if case == "photo_and_synthetic":
+        xyb, distance = torch.from_numpy(_xyb_groups()).to(cuda), 1.0
+    else:
+        g, distance = AQ_CARD_CASES[case]
+        xyb = _xyb_seeded(g).to(cuda)
+    if case == "beyond_fast_range":
+        # Pixels so large that the kernel's in-range division and square
+        # root do not apply: those rows take the compiler's own.
+        xyb[:, :, 60:131, 30:97] *= 2.0e5
+    if case == "large_within_fast_range":
+        # Large operands that still take the in-range sequences (Y < 32768).
+        xyb[:, :, 60:131, 30:97] *= 2.0e4
+        assert float(xyb[:, 1].max()) + 0.16 + float(xyb[:, 0].abs().max()) < 32768.0
+    consts, color = AQ.aq_constants(distance)
+    assert color == (distance == 1.0)
+    got = AQ.aq_field(xyb, distance)
     want = AQ.aq_field_plain(xyb, consts, color)
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
+def _quant_case(case):
+    """Inputs of the quantize kernel at its edges: `mixed` has all three
+    strategies inside every group, cell by cell (pairs that disagree are
+    computed cell by cell); `all_pairs` is a map as the strategy search
+    leaves it (every cell in a 16x8 or 8x16 pair with one quant field and
+    one factor pair, which the kernel computes once and stores twice);
+    `clamps` drives values beyond the AC and DC clamps."""
+    args = _quant_inputs(g=1 if case == "one_group" else 2)
+    if case == "all_dct8":
+        args[3][:] = 0
+    elif case == "all_pairs":
+        by, bx = np.mgrid[0:32, 0:32]
+        vert = ((by >> 1) + (bx >> 1)) % 2 == 0
+        args[3][:] = np.where(vert, 1, 2)
+        for a in args[4:7]:
+            first = np.where(vert, a[:, by & ~1, bx], a[:, by, bx & ~1])
+            a[:] = first
+    elif case == "clamps":
+        for a in args[:3]:
+            a *= 4000.0
+    return args
+
+
 @pytest.mark.gpu
-def test_quantize_kernel_on_card(cuda):
-    args = [torch.from_numpy(a).to(cuda) for a in _quant_inputs()]
+@pytest.mark.parametrize("case", ["mixed", "all_dct8", "all_pairs", "clamps", "one_group"])
+def test_quantize_kernel_on_card(cuda, case):
+    args = [torch.from_numpy(a).to(cuda) for a in _quant_case(case)]
     tabs = tables_from_numpy(NP_TABLES, cuda)
     distp = compute_distance_params(1.0)
     sc = (distp.scale, distp.scale_dc, distp.x_qm_mul)
     got = QK.quantize_cells(*args, tabs, *sc)
     want = QK.quantize_cells_plain(*args, tabs, *sc)
     assert all(_same(a, b) for a, b in zip(got, want))
+    if case == "clamps":
+        assert int(want[0].abs().max()) == 32767 and int(want[2].abs().max()) == 16383
+    if case == "all_pairs":  # both cells of a pair hold the same values
+        o = want[0]
+        assert torch.equal(o[:, 0::4, 0], o[:, 1::4, 0]) and bool((o != 0).any())
 
 
 @pytest.mark.gpu
