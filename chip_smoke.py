@@ -21,8 +21,12 @@ Phases (any failure exits non-zero at once):
               are held at every shape the encode launches them at (program
               A's tokens, program B's AC and DC word rows, the AC and DC
               sections); their one-call equivalent is zero_() + index_put_.
-              bitpack_groups_var, which no encode path calls, gets program
-              B's real AC tokens and must also equal bitpack_groups_words
+              estimate_partials also at one group, three, slope 1, scaled
+              and infinite coefficients. bitpack_groups_var, which no
+              encode path calls, gets program B's real AC tokens (also at an
+              ow that cuts a run of tokens) and the DC layout's tokens at
+              both ow, as int32 fields, and must also equal
+              bitpack_groups_words where no section overflows
   4. encode   the 8 MP encode at the default configuration through the
               public entry point: every kernel of the path must have
               launched, and the bytes must equal the same encode through
@@ -46,6 +50,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Instructions csrc/strategy.cu issues a coefficient-channel value: ~22 in
+# the arithmetic of a warp item's 12 values a lane, ~10 for its loads,
+# butterfly and stores (cuobjdump -sass of the sm_90a build; see
+# tools/bench_strategy_bitpack.py --sass).
+STRATEGY_OPS_PER_VALUE = 32
 DIST = 1.0
 # Sizes of the JAX package's encode_image_device(img, 1.0, upload_dtype=None)
 # on the CPU (XLA:CPU, Pallas in interpret mode), at the default
@@ -100,22 +109,31 @@ def max_abs_err(a, b):
     return float((a.long() - b.long()).abs().max())
 
 
-def compare(name, outs_k, outs_p):
-    """Exact equality of kernel and plain outputs (bitwise for floats)."""
+def compare(name, outs_k, outs_p, nan_ok=False):
+    """Exact equality of kernel and plain outputs (bitwise for floats; with
+    nan_ok a NaN equals any NaN, whatever its payload)."""
     import torch
 
-    err, bad = 0.0, 0
+    err, bad, nans = 0.0, 0, 0
     for k, p in zip(outs_k, outs_p):
         if k.shape != p.shape or k.dtype != p.dtype:
             fail(f"{name}: kernel output {k.dtype}{tuple(k.shape)} vs plain "
                  f"{p.dtype}{tuple(p.shape)}")
         if k.dtype.is_floating_point:
             same = k.view(torch.int32) == p.view(torch.int32)
+            if nan_ok:
+                both = torch.isnan(k) & torch.isnan(p)
+                nans += int(both.sum())
+                same = same | both
+                k, p = torch.where(both, 0.0, k), torch.where(both, 0.0, p)
         else:
             same = k == p
         bad += int((~same).sum())
         err = max(err, max_abs_err(k, p))
-    log(f"  {name}: mismatches {bad}, max_abs_err {err}")
+    log(f"  {name}: mismatches {bad}, max_abs_err {err}"
+        + (f", NaN in both at {nans} elements" if nan_ok else ""))
+    if nan_ok and not nans:
+        fail(f"{name}: expected NaNs in both outputs")
     if bad:
         fail(f"{name}: kernel disagrees with its plain version in {bad} elements")
     return err
@@ -166,6 +184,7 @@ def main():
     from jxl_tiny_tpu_torch.ops import tokenize_kernel as TK
     from jxl_tiny_tpu_torch.ops.dct import dct2d_8x8
     from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
+    from jxl_tiny_tpu_torch.tools import bench_strategy_bitpack as BS
 
     dev = torch.device("cuda")
     tables = tables_from_numpy(numpy_tables(), dev)
@@ -247,10 +266,38 @@ def main():
     pms = cuda_time_ms(lambda: SK.estimate_partials_plain(*e_args, slope), 3, 1)
     e_bytes = sum(a.numel() * 4 for a in e_args) + sum(o.numel() * 4 for o in outs_k)
     n_coef = sum(a.numel() for a in e_args[:3])
+    # Operations: what the kernel's SASS issues a coefficient-channel value
+    # (none of them fused), at the float32 rate of operations that are not
+    # FMAs (the 67 TFLOP/s peak counts an FMA as two).
+    t_ops = n_coef * STRATEGY_OPS_PER_VALUE / (F32_OPS_PER_S / 2) * 1e3
+    t_bytes, _ = bound(e_bytes, 0)
+    log(f"  estimate_partials bound: bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms "
+        f"({STRATEGY_OPS_PER_VALUE} a value, {n_coef} values) [{card}]")
     record("estimate_partials", "jxl_tiny_tpu_torch/csrc/strategy.cu",
            "jxl_tiny_tpu/ops/strategy_kernel.py:147", err, ms, pms,
-           *bound(e_bytes, n_coef * 20), None)
+           *((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), None)
     del outs_p
+
+    # estimate_partials at its edges: one group, three, slope 1 (distance
+    # >= 3), scaled values far above the fast square root's usual operands
+    # (still in its range, which holds every finite value), and an infinite
+    # coefficient, whose NaNs send its warp items to the sqrtf fallback
+    # (NaN compared as NaN: payloads may differ).
+    def e_edge(label, n, gain=1.0, poison=False, sl=slope, nan_ok=False):
+        args = [a[:n].contiguous() for a in e_args[:12]] + list(e_args[12:])
+        if gain != 1.0 or poison:
+            args[:3] = [a * gain for a in args[:3]]
+        if poison:
+            args[0][0, 1, 5, 7, 9] = float("inf")
+            args[2][n - 1, 0, 30, 3, 100] = float("inf")
+        compare(f"estimate_partials ({label})", SK.estimate_partials(*args, sl),
+                SK.estimate_partials_plain(*args, sl), nan_ok=nan_ok)
+
+    e_edge("1 group", 1)
+    e_edge("3 groups", 3)
+    e_edge("2 groups, slope 1.0", 2, sl=1.0)
+    e_edge("2 groups, coefficients x 1e30", 2, gain=1.0e30)
+    e_edge("2 groups, an infinite coefficient in two cells", 2, poison=True, nan_ok=True)
 
     # The decisions those estimates lead to: the real strategy maps that
     # the quantizer, the tokenizer and the compaction are held against.
@@ -412,6 +459,24 @@ def main():
             f"{b_ms:.4f} ms ({b_by}) [{card}]")
         return err, ms, pms, b_ms, b_by, lms
 
+    def hold_var(label, fields, ow_, words):
+        """bitpack_groups_var on int32 fields against its plain version and,
+        unless a section overflows ow_ (words None), against the encode's
+        packer's words; returns (max_abs_err, words)."""
+        w_k = PK.bitpack_groups_var(*fields, ow_)
+        err = compare(f"bitpack_groups_var ({label})", [w_k],
+                      [PK.bitpack_groups_var_plain(*fields, ow_)])
+        if words is not None and not torch.equal(w_k, words):
+            fail(f"bitpack_groups_var ({label}): words differ from bitpack_groups_words")
+        return err, w_k
+
+    def var_bound(nbits, ow_):
+        """The bytes bitpack_groups_var must move (tools/
+        bench_strategy_bitpack.var_needed_bytes); ~6 integer operations a
+        token."""
+        nbytes = BS.var_needed_bytes(nbits, ow_)
+        return bound(nbytes, (nbytes - nbits.shape[0] * ow_ * 4) // 8 * 6)
+
     def sections_wcap(ng, ow_):  # the encoder's buffer size rule
         return min(1 << int(ng * ow_).bit_length(), 2 * 1024 * 1024)
 
@@ -461,8 +526,17 @@ def main():
                                             prefix_valid=False)
         hold_copy_sections(f"DC sections, ow {ow_dc}", packed_dc, dc_ends[:, -1],
                            sections_wcap(gd, ow_dc))
+        # The token bit packer on the DC layout's tokens (zero widths
+        # interleave), which no encode path calls.
+        dc32 = tuple(t.to(torch.int32) for t in (dc_data, dc_nbits, dc_pos))
+        over = int(dc_ends[:, -1].max()) > 32 * ow_dc
+        hold_var(f"DC tokens, ow {ow_dc}{' (sections overflow)' if over else ''}", dc32,
+                 ow_dc, None if over else packed_dc)
+        dms = cuda_time_ms(lambda: PK.bitpack_groups_var(*dc32, ow_dc), 20)
+        log(f"  bitpack_groups_var (DC tokens {list(dc_data.shape)}, ow {ow_dc}): kernel "
+            f"{dms:.4f} ms, bound {var_bound(dc32[1], ow_dc)[0]:.4f} ms [{card}]")
     del (layout, dc_data, dc_nbits, dc_ends, dc_pos, d_rows, d_cnt, packed_dc,
-         w_rows, w_cnt)
+         w_rows, w_cnt, dc32)
 
     # Program A stage by stage (ops/pipeline.analyze_image_packed's calls in
     # order, on this image's tensors; device time by CUDA events, 3 calls
@@ -504,24 +578,29 @@ def main():
         f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}; sum "
         f"{sum(stage_ms.values()):.3f} ms [{card}]")
 
-    # Token bit packer on the same AC tokens (off every encode path).
-    bpos = ends - nbits
-    w_k = PK.bitpack_groups_var(data, nbits, bpos, ow)
-    w_p = PK.bitpack_groups_var_plain(data, nbits, bpos, ow)
-    err = compare("bitpack_groups_var", [w_k], [w_p])
-    if not torch.equal(w_k, packed):
-        fail("bitpack_groups_var: words differ from bitpack_groups_words")
-    ms = cuda_time_ms(lambda: PK.bitpack_groups_var(data, nbits, bpos, ow), 20)
-    pms = cuda_time_ms(lambda: PK.bitpack_groups_var_plain(data, nbits, bpos, ow), 3, 1)
-    wms = cuda_time_ms(lambda: PK.bitpack_groups_words(data, nbits, bpos, ow), 3, 1)
+    # Token bit packer on the same AC tokens (off every encode path), as
+    # int32 fields (converted once, outside the timed launches); then at an
+    # ow that cuts a thread's run of tokens in two.
+    ac32 = tuple(t.to(torch.int32) for t in (data, nbits, ends - nbits))
+    err, w_k = hold_var("AC tokens", ac32, ow, packed)
+    ms = cuda_time_ms(lambda: PK.bitpack_groups_var(*ac32, ow), 20)
+    pms = cuda_time_ms(lambda: PK.bitpack_groups_var_plain(*ac32, ow), 3, 1)
+    wms = cuda_time_ms(lambda: PK.bitpack_groups_words(data, nbits, ends - nbits, ow), 3, 1)
     log(f"  bitpack_groups_words on the same tokens (the encode's packer: "
         f"torch passes + compact_rows): {wms:.4f} ms [{card}]")
+    p0 = ac32[2][0]
+    cut = next((int(p0[t + 4]) // 32 for t in range(1024, int(totals[0]) - 8, 8)
+                if int(p0[t]) < 32 * (int(p0[t + 4]) // 32) < int(p0[t + 8])), None)
+    if cut is None:
+        fail("bitpack_groups_var: found no ow that cuts a run of group 0")
+    err = max(err, hold_var(f"AC tokens, ow {cut} inside a run of group 0", ac32, cut,
+                            packed[:, :cut].contiguous())[0])
     record("bitpack_groups_var", "jxl_tiny_tpu_torch/csrc/bitpack.cu",
            "jxl_tiny_tpu/ops/pack_kernels.py:735", err, ms, pms,
-           *bound(3 * data.numel() * 4 + w_k.numel() * 4, data.numel() * 6), None)
+           *var_bound(ac32[1], ow), None)
     ac_stream, ac_totals, ac_table = stream, totals, d_table
     del (groups, xyb, coef8, c8, coef_v, coef_h, m, x, tok_k, tok_p, rows_tok,
-         s_k, outs_k, outs_p, data, nbits, e_args, w_k, w_p, bpos, packed)
+         s_k, outs_k, outs_p, data, nbits, e_args, w_k, ac32, packed)
     torch.cuda.empty_cache()
 
     # -- 4. the 8 MP encode through the public entry point ------------------
@@ -624,7 +703,8 @@ def main():
     reset_counts()
     v_data, v_nbits = PK.token_data_bits(ac_stream, ac_totals, ac_table)
     v_ends = torch.cumsum(v_nbits, 1)
-    v_words = PK.bitpack_groups_var(v_data, v_nbits, v_ends - v_nbits, ow)
+    v32 = tuple(t.to(torch.int32) for t in (v_data, v_nbits, v_ends - v_nbits))
+    v_words = PK.bitpack_groups_var(*v32, ow)
     rec["bitpack_groups_var"]["launches"] = PK.bitpack_groups_var.launches
     if PK.bitpack_groups_var.launches != 1:
         fail("bitpack_groups_var: its phase did not launch the kernel once")
@@ -632,7 +712,7 @@ def main():
         fail("bitpack_groups_var: program B's AC words differ")
     log(f"bitpack_groups_var as program B's AC packer: {g} sections, words "
         f"equal to bitpack_groups_words")
-    del v_data, v_nbits, v_ends, v_words
+    del v_data, v_nbits, v_ends, v_words, v32
 
     # Small images: both configurations against the JAX package's CPU
     # sizes, and the fixed-8x8 path through kernels and plain versions.

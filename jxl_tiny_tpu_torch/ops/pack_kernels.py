@@ -302,10 +302,12 @@ def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
 
 
 def bitpack_groups_var_plain(data, nbits, pos, ow):
-    """Plain torch version of the bitpack kernel (same arguments). Tokens
-    occupy disjoint bit ranges, so adding their word parts in int64 equals
-    ORing them."""
+    """Plain torch version of the bitpack kernel (same arguments; int64
+    fields are taken too). Tokens occupy disjoint bit ranges, so adding
+    their word parts in int64 equals ORing them."""
     g, cap = data.shape
+    data = data.to(torch.int64) & M32  # the uint32 pattern of an int32 field
+    nbits, pos = nbits.to(torch.int64), pos.to(torch.int64)
     valid = nbits > 0
     sh = pos & 31
     w = pos >> 5
@@ -330,22 +332,30 @@ class _BitpackVar:
         self.launches = 0
 
     def __call__(self, data, nbits, pos, ow):
-        """data/nbits/pos: [G, cap] int64 per-token LSB-first bit patterns
-        (data < 2^nbits, nbits <= 28), widths and absolute bit positions;
-        tokens of width 0 are no-ops. Returns the packed words [G, ow] i32
-        (uint32 bit patterns): the OR of every token at its position, zero
-        elsewhere.
+        """data/nbits/pos: [G, cap] int32 per-token LSB-first bit patterns
+        (the uint32 pattern; data < 2^nbits, nbits <= 28), widths and bit
+        positions; tokens of width 0 are no-ops and may sit anywhere.
+        Returns the packed words [G, ow] i32 (uint32 bit patterns): the OR
+        of every token at its position, zero elsewhere; words at or beyond
+        ow are dropped.
+
+        Precondition, the JAX packer's (jxl_tiny_tpu/ops/pack_kernels.py:
+        601-610, whose fused entries read one position each, `:833`):
+        inside a group pos is the exclusive prefix sum of nbits, starting
+        at 0. The kernel reads one position per run of tokens and relies on
+        it; the plain version does not.
 
         This is the contract of the JAX package's bitpack_groups_var for
         sections of at most var_safe_words(ow) words, which is all its
         callers may pass; beyond that the JAX kernel mis-places entries,
-        while this one packs up to ow words and drops what lies beyond."""
+        while this one packs up to ow words and drops what lies beyond.
+        CPU tensors take the plain version; CUDA tensors must be int32."""
         if not data.is_cuda:
             return bitpack_groups_var_plain(data, nbits, pos, ow)
         g, cap = data.shape
-        require(data, torch.int64, (g, cap), "bitpack_groups_var data")
-        require(nbits, torch.int64, (g, cap), "bitpack_groups_var nbits")
-        require(pos, torch.int64, (g, cap), "bitpack_groups_var pos")
+        require(data, torch.int32, (g, cap), "bitpack_groups_var data")
+        require(nbits, torch.int32, (g, cap), "bitpack_groups_var nbits")
+        require(pos, torch.int32, (g, cap), "bitpack_groups_var pos")
         out = torch.empty((g, ow), dtype=torch.int32, device=data.device)
         lib = load("bitpack", _bind_bitpack)
         check(

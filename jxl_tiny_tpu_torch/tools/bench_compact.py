@@ -59,7 +59,8 @@ def build(name, source, consts=(), bind=PK._bind_compact, sub="bench_compact"):
     src = out_dir / f"{name}.cu"
     src.write_text(text)
     lib = out_dir / f"lib{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-Xptxas", "-v",
+           "-o", str(lib), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         sys.exit(f"{name}: nvcc failed:\n{res.stdout}{res.stderr}")

@@ -286,16 +286,63 @@ def _var_token_fields(case):
     return data, nbits, pos, ow
 
 
+BITPACK_EDGE_CASES = ["offset31_28bit", "zero_width_runs", "ow_cut"]
+
+
+def _bitpack_edge_fields(case):
+    """Token fields at the edges of csrc/bitpack.cu's run merge (runs of 8
+    tokens, chunks of 1,024): a 28-bit token at bit offset 31, at the start
+    of the stream and at the first token of the second chunk;
+    zero widths over a whole run, a whole chunk and the tail, in two
+    groups; and an ow whose word boundary falls inside a run. Returns
+    (data u32, nbits i32, pos i32, ow) as _var_token_fields."""
+    rng = np.random.RandomState(71 + BITPACK_EDGE_CASES.index(case))
+    if case == "ow_cut":
+        data, nbits, pos, _ = _var_token_fields("max_widths")
+        p = pos[0]
+        t = next(t for t in range(2048, 4000, 8) if p[t] < 32 * (p[t + 4] // 32) < p[t + 8])
+        return data, nbits, pos, int(p[t + 4] // 32)
+    if case == "offset31_28bit":
+        g, cap, ow = 1, 2048, 1024
+        nbits = rng.randint(1, 29, size=(g, cap)).astype(np.int32)
+        nbits[0, :3] = [28, 3, 28]
+        nbits[0, 1016:1023] = 20
+        x = (31 - int(nbits[0, :1016].sum()) - 140) % 32
+        if x > 28:
+            nbits[0, 1022] += 4
+            x -= 4
+        nbits[0, 1023], nbits[0, 1024] = x, 28
+    else:
+        g, cap, ow = 2, 4096, 4096
+        nbits = rng.randint(0, 29, size=(g, cap)).astype(np.int32)
+        nbits[:, 8:16] = 0
+        nbits[0, 1000:2100] = 0
+        nbits[1, 3:7] = 0
+        nbits[:, -300:] = 0
+    data = (rng.randint(0, 1 << 30, size=(g, cap)) & ((1 << nbits) - 1)).astype(np.uint32)
+    pos = (np.cumsum(nbits, axis=1) - nbits).astype(np.int32)
+    if case == "offset31_28bit":
+        assert pos[0, 2] == 31 and pos[0, 1024] % 32 == 31 and nbits[0, 1024] == 28
+    return data, nbits, pos, ow
+
+
+def _i32_fields(*arrays):
+    """numpy token fields -> int32 tensors (data as its uint32 pattern)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
+                 for a in arrays)
+
+
 def _scalar_bitpack(data, nbits, ow):
-    """Token-by-token reference packer for one group."""
-    out = np.zeros(ow, np.uint32)
+    """Token-by-token reference packer for one group; words at or beyond
+    ow are dropped."""
+    out = np.zeros(max(ow, int(nbits.sum()) // 32 + 2), np.uint32)
     p = 0
     for d, nb in zip(data.tolist(), nbits.tolist()):
         out[p >> 5] |= (d << (p & 31)) & 0xFFFFFFFF
         if (p & 31) + nb > 32:
             out[(p >> 5) + 1] |= d >> (32 - (p & 31))
         p += nb
-    return out
+    return out[:ow]
 
 
 # ---------------------------------------------------------------------------
@@ -683,18 +730,19 @@ def test_bitpack_groups_var_matches_jax(jx, case):
         assert int(nbits.sum()) > 32 * PK.var_safe_words(ow) - 28 * 8
     j = jx.jnp.asarray
     want = np.asarray(jx.PK.bitpack_groups_var(j(data), j(nbits), j(pos), ow))
-    d, n, p = (torch.from_numpy(a.astype(np.int64)) for a in (data, nbits, pos))
+    d, n, p = _i32_fields(data, nbits, pos)
     got = u32(PK.bitpack_groups_var(d, n, p, ow))
     assert np.array_equal(got[0], _scalar_bitpack(data[0], nbits[0], ow))
     assert np.array_equal(got, want)
-    words = u32(PK.bitpack_groups_words(d, n, p, ow, prefix_valid=case == "safe_fill"))
+    d64, n64, p64 = (torch.from_numpy(a.astype(np.int64)) for a in (data, nbits, pos))
+    words = u32(PK.bitpack_groups_words(d64, n64, p64, ow, prefix_valid=case == "safe_fill"))
     assert np.array_equal(got, words)
 
 
 def test_bitpack_groups_var_drops_words_beyond_ow():
     """Tokens at or beyond ow words leave the kept words untouched."""
     data, nbits, pos, ow = _var_token_fields("max_widths")
-    d, n, p = (torch.from_numpy(a.astype(np.int64)) for a in (data, nbits, pos))
+    d, n, p = _i32_fields(data, nbits, pos)
     full = u32(PK.bitpack_groups_var(d, n, p, ow))
     cut = u32(PK.bitpack_groups_var(d, n, p, 100))
     assert np.array_equal(cut, full[:, :100]) and full[:, 100:].any()
@@ -739,7 +787,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     PK.compact_sections(torch.zeros((2, 256), dtype=torch.int32),
                         torch.tensor([100, 5000]), 1024)
     SK.estimate_partials(*[torch.from_numpy(a) for a in _estimate_inputs(g=1)], 0.5)
-    z = torch.zeros((1, 128), dtype=torch.int64)
+    z = torch.zeros((1, 128), dtype=torch.int32)
     PK.bitpack_groups_var(z, z, z, 64)
     assert [w.launches for w in wrappers] == before
 
@@ -864,6 +912,163 @@ def test_zigzag_tables_equal_order_tab_applied(strategy):
     params = QK.quantize_cells.params_for(0.5, 0.25, 1.0, dc_pos)
     assert QK.quantize_cells.params_for(0.5, 0.25, 1.0, dc_pos) is params
     assert list(params.dc_pos) == [p for pair in dc_pos for p in pair]
+
+
+def _lane_reduction(x):
+    """csrc/strategy.cu's sums, in numpy. x: [cells, 8, n] float32, eight
+    sums a cell of n = 64 or 128 values each. L = n/4 lanes a cell (32/L
+    cells a warp), lane l holding values l + L*i (i < 4) of every sum; the
+    lane adds its elements i and i+2, then 0 and 1; then a butterfly over
+    lanes L/2, L/4, L/8 apart, in which a lane keeps half of its sums and
+    adds its partner's copy of that half, and two (or one) last levels on
+    the one sum left. Returns [cells, 8]: each sum as the lane that ends
+    with it holds it."""
+    cells, _, n = x.shape
+    lpc = n // 4
+    per_warp = 32 // lpc
+    v = x.reshape(cells, 8, 4, lpc)
+    part = (v[:, :, 0] + v[:, :, 2]) + (v[:, :, 1] + v[:, :, 3])  # [cell, sum, lane]
+    warps = cells // per_warp
+    arr = part.reshape(warps, per_warp, 8, lpc).transpose(0, 1, 3, 2).reshape(warps, 32, 8)
+    lane = np.arange(32)
+
+    def fold(arr, m, off):
+        upper = ((lane & off) != 0)[None, :, None]
+        lo, hi = arr[:, :, : m // 2], arr[:, :, m // 2: m]
+        send, keep = np.where(upper, lo, hi), np.where(upper, hi, lo)
+        return keep + send[:, lane ^ off]
+
+    arr = fold(fold(fold(arr, 8, lpc // 2), 4, lpc // 4), 2, lpc // 8)
+    s = arr[:, :, 0]
+    off = lpc // 16
+    while off >= 1:
+        s = s + s[:, lane ^ off]
+        off //= 2
+    src = (np.arange(per_warp)[:, None] * lpc + np.arange(8)[None, :] * (lpc // 8))
+    return s[:, src].reshape(cells, 8)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_estimate_lane_reduction_equals_tree_sum(n):
+    """The kernel's mapping of the halving tree onto lanes (two 8x8 cells
+    or one 16x8 / 8x16 cell a warp, eight sums reduced together by a
+    butterfly) is tree_sum bit for bit, on float32 values over six decades
+    whose sums round at every level; the nonzero counts packed three to a
+    float come out exact."""
+    rng = np.random.RandomState(81)
+    cells = 2048
+    x = (rng.randn(cells, 8, n) * 10.0 ** rng.uniform(-3, 3, size=(cells, 8, n))).astype(np.float32)
+    x[rng.rand(cells, 8, n) < 0.3] = 0.0
+    x[:64] = 0.0
+    nz = x[:, :3] != 0
+    nz[64] = True  # a cell with every value nonzero
+    x[:, 6] = (nz[:, 0] + 256 * nz[:, 1] + 65536 * nz[:, 2]).astype(np.float32)
+    x[:, 7] = 0.0
+    sums = _lane_reduction(x)
+    want = SK.tree_sum(torch.from_numpy(x[:, :6])).numpy()
+    assert np.array_equal(sums[:, :6].view(np.int32), want.view(np.int32))
+    counts = sums[:, 6].astype(np.int64)
+    for k in range(3):
+        assert np.array_equal((counts >> (8 * k)) & 255, nz[:, k].sum(1))
+    assert not np.array_equal(want, x[:, :6].sum(2, dtype=np.float32))  # the order matters
+
+
+def _bitpack_runs(data, nbits, pos, ow, threads=128, run=8):
+    """csrc/bitpack.cu's word merge in numpy: chunks of threads * run tokens,
+    a run of consecutive tokens a thread merged with a 64-bit accumulator
+    from the run's first position, words wholly inside a run stored, the
+    run's first (shared) and last partial word ORed, the chunk's last word
+    finished from the next 32 tokens and, for bits still missing, the token
+    found by binary search to start at each, each chunk storing the words
+    whose first bit it holds, the zero tail spread over the chunks. Checks
+    that no stored word is touched by another thread, and that every output
+    word is written exactly once."""
+    m32 = 0xFFFFFFFF
+    g, cap = data.shape
+    chunk = threads * run
+    chunks = -(-cap // chunk)
+    out = np.zeros((g, ow), np.uint32)
+    for gi in range(g):
+        d, n, p = (a[gi].astype(np.int64).tolist() for a in (data, nbits, pos))
+        writes = np.zeros(ow, np.int64)
+        total = p[cap - 1] + n[cap - 1]
+        wt = min((total + 31) >> 5, ow)
+        zshare = -(-(ow - wt) // chunks)
+        for c in range(chunks):
+            t0 = c * chunk
+            c0 = p[t0]
+            c1 = p[t0 + chunk] if t0 + chunk < cap else total
+            for k in range(wt + c * zshare, min(wt + (c + 1) * zshare, ow)):
+                out[gi, k] = 0
+                writes[k] += 1
+            if c1 == c0:
+                continue
+            buf, stored, ored = [0] * (chunk + 2), {}, {}
+            kb = c0 >> 5
+            for th in range(threads):
+                t = t0 + th * run
+                p0 = p[t] if t < cap else total
+                kfirst, left = (p0 >> 5) - kb, (p0 & 31) != 0
+                acc, fill, k = 0, p0 & 31, (p0 >> 5) - kb
+                for j in range(t, t + run):
+                    nb = max(n[j], 0) if j < cap else 0
+                    acc |= (d[j] if nb > 0 else 0) << fill
+                    fill += nb
+                    if fill >= 32:
+                        if left and k == kfirst:
+                            buf[k] |= acc & m32
+                            ored.setdefault(k, set()).add(th)
+                        else:
+                            assert k not in stored and k not in ored
+                            buf[k] = acc & m32
+                            stored[k] = th
+                        acc >>= 32
+                        fill -= 32
+                        k += 1
+                if fill > 0 and acc & m32:
+                    assert k not in stored
+                    buf[k] |= acc & m32
+                    ored.setdefault(k, set()).add(th)
+            ws = c1 & ~31
+            if c1 & 31 and ws >= c0 and c1 < total:
+                we, w, reached = ws + 32, 0, total
+                for j in range(t0 + chunk, t0 + chunk + 32):
+                    reached = total
+                    if j < cap:
+                        reached = p[j] + max(n[j], 0)
+                        if n[j] > 0 and p[j] < we:
+                            w |= (d[j] << (p[j] - ws)) & m32
+                for b in range(reached, min(we, total)):
+                    lo = int(np.searchsorted(p, b, side="right")) - 1
+                    assert lo >= t0 + chunk + 32
+                    if p[lo] == b:
+                        w |= (d[lo] << (b - ws)) & m32
+                assert (c1 >> 5) - kb not in stored
+                buf[(c1 >> 5) - kb] |= w
+            for q in range((c0 + 31) >> 5, min((c1 + 31) >> 5, ow)):
+                out[gi, q] = buf[q - kb]
+                writes[q] += 1
+        assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("threads", [128, 4], ids=["kernel_chunks", "chunks_of_32"])
+@pytest.mark.parametrize("case", ["safe_fill", "zero_runs", "max_widths"] + BITPACK_EDGE_CASES)
+def test_bitpack_run_merge_equals_scalar(case, threads):
+    """The token packer's run merge (kernel chunks of 1,024 tokens, and
+    chunks of 32 tokens, where every run and chunk edge is exercised) gives
+    the token-by-token reference packer's words, and so does the plain
+    version on int32 fields."""
+    if case in BITPACK_EDGE_CASES:
+        data, nbits, pos, ow = _bitpack_edge_fields(case)
+    else:
+        data, nbits, pos, ow = _var_token_fields(case)
+    got = _bitpack_runs(data, nbits, pos, ow, threads=threads)
+    plain = u32(PK.bitpack_groups_var(*_i32_fields(data, nbits, pos), ow))
+    for k in range(data.shape[0]):
+        want = _scalar_bitpack(data[k], nbits[k], ow)
+        assert np.array_equal(got[k], want)
+        assert np.array_equal(plain[k], want)
 
 
 # ---------------------------------------------------------------------------
@@ -1026,22 +1231,64 @@ def test_copy_sections_raises_on_unaligned_sizes(cuda, ow, wcap):
         PK.copy_sections(packed, nblk, offs, wcap)
 
 
+ESTIMATE_CARD_CASES = {"two_groups": 2, "one_group": 1, "three_groups": 3,
+                       "unit_normal": 2, "scaled_1e30": 2, "infinite_coefficient": 2}
+
+
 @pytest.mark.gpu
-def test_estimate_kernel_on_card(cuda):
-    args = [torch.from_numpy(a).to(cuda) for a in _estimate_inputs()]
+@pytest.mark.parametrize("case", list(ESTIMATE_CARD_CASES))
+def test_estimate_kernel_on_card(cuda, case):
+    """Exact at slope 1/3 and 1; `scaled_1e30` feeds the fast square root
+    values far above an encoder's (still in its range, which holds every
+    finite value); `infinite_coefficient` sends two warp items to the sqrtf
+    fallback through NaN (a NaN equals any NaN: payloads may differ)."""
+    g = ESTIMATE_CARD_CASES[case]
+    args = [torch.from_numpy(a).to(cuda) for a in _estimate_inputs(
+        g=g, realistic=case != "unit_normal")]
+    if case == "scaled_1e30":
+        args[:3] = [a * 1.0e30 for a in args[:3]]
+    if case == "infinite_coefficient":
+        args[0][0, 1, 5, 7, 9] = float("inf")
+        args[2][1, 0, 30, 3, 100] = float("inf")
     for slope in (1.0 / 3.0, 1.0):
         got = SK.estimate_partials(*args, slope)
         want = SK.estimate_partials_plain(*args, slope)
-        assert all(_same(a, b) for a, b in zip(got, want))
+        nans = [torch.isnan(a) & torch.isnan(b) for a, b in zip(got, want)]
+        assert [bool(n.any()) for n in nans] == [case == "infinite_coefficient", False,
+                                                 case == "infinite_coefficient"]
+        assert all(_same(torch.where(n, 0.0, a), torch.where(n, 0.0, b))
+                   for n, a, b in zip(nans, got, want))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["safe_fill", "zero_runs", "max_widths"])
+@pytest.mark.parametrize("case", ["safe_fill", "zero_runs", "max_widths"]
+                         + BITPACK_EDGE_CASES + ["many_groups"])
 def test_bitpack_var_kernel_on_card(cuda, case):
-    data, nbits, pos, ow = _var_token_fields(case)
-    d, n, p = (torch.from_numpy(a.astype(np.int64)).to(cuda) for a in (data, nbits, pos))
+    if case == "many_groups":  # 300 groups of different lengths, zero widths inside
+        rng = np.random.RandomState(61)
+        nbits = rng.randint(0, 29, size=(300, 3000)).astype(np.int32)
+        nbits[np.arange(3000)[None, :] >= rng.randint(0, 3001, size=(300, 1))] = 0
+        nbits[rng.rand(300, 3000) < 0.3] = 0
+        data = (rng.randint(0, 1 << 30, size=nbits.shape) & ((1 << nbits) - 1)).astype(np.uint32)
+        pos = (np.cumsum(nbits, axis=1) - nbits).astype(np.int32)
+        ow = 2700
+    elif case in BITPACK_EDGE_CASES:
+        data, nbits, pos, ow = _bitpack_edge_fields(case)
+    else:
+        data, nbits, pos, ow = _var_token_fields(case)
+    d, n, p = (t.to(cuda) for t in _i32_fields(data, nbits, pos))
     got = PK.bitpack_groups_var(d, n, p, ow)
     assert _same(got, PK.bitpack_groups_var_plain(d, n, p, ow))
-    assert np.array_equal(u32(got.cpu())[0], _scalar_bitpack(data[0], nbits[0], ow))
+    for k in range(got.shape[0]):
+        assert np.array_equal(u32(got.cpu())[k], _scalar_bitpack(data[k], nbits[k], ow))
     cut = PK.bitpack_groups_var(d, n, p, 100)
     assert _same(cut, got[:, :100].contiguous())
+
+
+@pytest.mark.gpu
+def test_bitpack_var_kernel_raises_on_int64_fields(cuda):
+    """The kernel takes the JAX function's int32 fields; the wrapper refuses
+    int64 for a CUDA tensor and does not give way to the plain version."""
+    z = torch.zeros((2, 256), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        PK.bitpack_groups_var(z, z, z, 64)
