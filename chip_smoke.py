@@ -6,6 +6,8 @@
 Phases (any failure exits non-zero at once):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile every kernel in jxl_tiny_tpu_torch/csrc (nvcc, parallel)
+              and the native host packer (cpp/pack.cc, g++), which must load:
+              BitWriter.to_bytes may not fall back to numpy here
   3. kernels  feed each kernel the real tensors of the port's default path
               on testdata/photo8mp.pfm (3840x2160, 135 groups; real strategy
               maps and 16x8 / 8x16 coefficient sets) and hold its output
@@ -35,6 +37,20 @@ Phases (any failure exits non-zero at once):
               (its own launch count); then the fixed-8x8 configuration on
               small images, and photo256 / gradient512 sizes at both
               configurations against the JAX package's CPU references
+  5. multi-image
+              program A and program B (both tiers) queued under
+              torch.cuda.set_sync_debug_mode("error"): no host sync; four 8
+              MP images (photo8mp, its flips, its 180-degree turn) through
+              encode_images_device against their serial encodes (same
+              bytes, input order, no retry), warm walls of both; eight
+              1024x1024 crops through encode_batch_device, float and u8
+              sRGB, default and static tier, against their single encodes
+              and the plain versions' batch encode, each kernel launching
+              once a program and every kernel call held against its plain
+              version; the four 8 MP images as one 540-group batch
+              (copy_sections past its 512 groups of shared-memory offsets),
+              every kernel call held against its plain version and timed at
+              the batch's shapes
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -44,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -92,6 +109,31 @@ def cuda_time_ms(fn, reps, warm=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profiled(fn):
+    """Run fn under torch.profiler; returns (wall ms, device-busy ms, the
+    six kernels with the most device time as (name, ms, calls)), or None
+    where the profiler records no device time. A measurement only: never
+    fails the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    # Device-side entries only (kernels, copies, fills): an operator's own
+    # entry carries its kernels' time again.
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), [(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]]
 
 
 def bound(nbytes, nops):
@@ -167,6 +209,13 @@ def main():
     libs = _build.build_all()
     log(f"build: {len(libs)} libraries ({', '.join(sorted(libs))}) in "
         f"{time.time() - t0:.1f} s")
+    from jxl_tiny_tpu_torch.cpp import build as native
+
+    t0 = time.time()
+    if native.native_packer() is None:
+        fail("the native host packer did not load (no g++?): BitWriter.to_bytes "
+             "would fall back to numpy")
+    log(f"build: native host packer {native.library_path()} in {time.time() - t0:.1f} s")
 
     from jxl_tiny_tpu_torch import constants as C
     from jxl_tiny_tpu_torch.common import EncoderConfig, compute_distance_params
@@ -256,7 +305,7 @@ def main():
                        for gx in range(-(-w // 256))], device=dev)
     ar = torch.arange(32, device=dev)
     valid = (ar[None, :, None] < yb[:, None, None]) & (ar[None, None, :] < xb[:, None, None])
-    ytox, ytob = PL.compute_cmap(coef8, valid)
+    ytox, ytob = PL.compute_cmap(coef8, valid, tables)
     e_args = PL.strategy_inputs(coef8, qf, masking, ytox, ytob, tables)
     slope = min(1.0, distp.distance / 3.0)
     outs_k = SK.estimate_partials(*e_args, slope)
@@ -493,7 +542,7 @@ def main():
 
     # (b) Program B's AC word rows and AC sections (first code pass).
     stream = s_k[:, :cap].contiguous()
-    hist = PK.hist_base64(stream, totals).cpu().numpy()
+    hist = PK.hist_base64(stream, totals).cpu().numpy()[0]
     _, d_table = build_ac_device_code(hist, PK.ac_base64_map())
     d_table = torch.from_numpy(d_table).to(dev)
     data, nbits = PK.token_data_bits(stream, totals, d_table)
@@ -514,7 +563,7 @@ def main():
     layout, dchist = PL.dc_layout_from_maps(
         m["quant_dc"], raw_qf, strategy, is_first, ytox, ytob, ysize=h, xsize=w,
         tables=tables)
-    _, d_table_dc = build_dc_device_code(dchist.cpu().numpy()[: C.NUM_DC_CONTEXTS])
+    _, d_table_dc = build_dc_device_code(dchist.cpu().numpy()[0, : C.NUM_DC_CONTEXTS])
     dc_data, dc_nbits = DK.dc_token_data_bits(layout, torch.from_numpy(d_table_dc).to(dev))
     dc_ends = torch.cumsum(dc_nbits, 1)
     dc_pos = dc_ends - dc_nbits
@@ -538,7 +587,7 @@ def main():
     del (layout, dc_data, dc_nbits, dc_ends, dc_pos, d_rows, d_cnt, packed_dc,
          w_rows, w_cnt, dc32)
 
-    # Program A stage by stage (ops/pipeline.analyze_image_packed's calls in
+    # Program A stage by stage (ops/pipeline.analyze_batch_packed's calls in
     # order, on this image's tensors; device time by CUDA events, 3 calls
     # each): where its time goes outside the five kernels.
     sc3 = (distp.scale, distp.scale_dc, distp.x_qm_mul)
@@ -549,7 +598,7 @@ def main():
          lambda: AQ.adaptive_quant_field(xyb, distp.distance, distp.inv_scale)),
         ("dct2d_8x8", lambda: dct2d_8x8(
             xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5), tables.dct8)),
-        ("compute_cmap", lambda: PL.compute_cmap(coef8, valid)),
+        ("compute_cmap", lambda: PL.compute_cmap(coef8, valid, tables)),
         ("compute_ac_strategy (16x8 / 8x16 DCTs + estimate_partials + decisions)",
          lambda: PL.compute_ac_strategy(coef8, qf, masking, ytox, ytob,
                                         distp.distance, yb, xb, tables)),
@@ -567,16 +616,25 @@ def main():
                  em(m["lastnz"]) - em(cov_b) + 1, 0), 0).to(torch.int32).reshape(g, -1),
              cap, True)),
         ("hist_base64", lambda: PK.hist_base64(stream, torch.clamp_max(totals, cap))),
-        ("pack_meta_u8", lambda: PL.pack_meta_u8(m["quant_dc"], raw_qf, strategy,
-                                                 is_first, ytox, ytob)),
         ("dc_layout_from_maps (+ dc_hist)",
          lambda: PL.dc_layout_from_maps(m["quant_dc"], raw_qf, strategy, is_first,
                                         ytox, ytob, ysize=h, xsize=w, tables=tables)),
+        # What the layout's five geometry vectors cost when they are copied
+        # to the card on every call (the form before the sync repair).
+        ("five geometry copies, per call (torch.tensor(..., device=))",
+         lambda: [torch.tensor(v, dtype=torch.int64, device=dev)
+                  for v in DK.dc_group_geometry(h, w).values()]),
     )
     stage_ms = {name: cuda_time_ms(fn, 3, 1) for name, fn in stage_fns}
     log(f"program A stages photo8mp (CUDA events, ms): "
         f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}; sum "
         f"{sum(stage_ms.values()):.3f} ms [{card}]")
+    # Where dc_layout_from_maps' device time goes, kernel by kernel.
+    prof = profiled(dict(stage_fns)["dc_layout_from_maps (+ dc_hist)"])
+    log("dc_layout_from_maps under torch.profiler: " + (
+        "no device time recorded" if prof is None else
+        f"wall {prof[0]:.3f} ms, device busy {prof[1]:.3f} ms; top kernels "
+        f"(name, ms, calls) {prof[2]}") + f" [{card}]")
 
     # Token bit packer on the same AC tokens (off every encode path), as
     # int32 fields (converted once, outside the timed launches); then at an
@@ -653,11 +711,11 @@ def main():
     # ending in a synchronize.
     up16, t_conv = synced_ms(lambda: img8.astype(np.float16))
     _, t_h2d = synced_ms(lambda: torch.from_numpy(up16).to(dev))
-    job, t_init = synced_ms(lambda: DeviceEncodeJob(img8, DIST, config=cfg))
+    job, t_init = synced_ms(lambda: DeviceEncodeJob([img8], DIST, config=cfg))
     _, t_pack = synced_ms(job.pack)
     _, t_fetch = synced_ms(job._fetch_sections)
     data_s, t_asm = synced_ms(job.result)
-    if data_s != data_k:
+    if data_s != [data_k]:
         fail("photo8mp: staged job differs from encode_image_device")
     prog_a = cuda_time_ms(lambda: job._run_a(job.cap), 3, 1)
     prog_b = cuda_time_ms(job._dispatch_b, 3, 1)
@@ -670,7 +728,7 @@ def main():
         f"program A) {t_init:.1f} ms; pack (totals/hists read, entropy codes, "
         f"program B) {t_pack:.1f} ms; fetch (section sizes, capacity retries, "
         f"words read) {t_fetch:.1f} ms; assembly {t_asm:.1f} ms; final "
-        f"cap {job.cap} ow {job.ow} ow_dc {job._ow_dc} [{card}]")
+        f"cap {job.cap} ow {job.plan.ow} ow_dc {job.plan.ow_dc} [{card}]")
 
     data_p = encode_image_device(img8, DIST, config=cfg, kernels=False)
     if data_p != data_k:
@@ -680,8 +738,8 @@ def main():
 
     # The one-pass static tier: the same kernels in one program.
     reset_counts()
-    job_s, t_static = synced_ms(lambda: DeviceEncodeJob(img8, DIST, config=cfg_static))
-    data_st, t_static_rest = synced_ms(job_s.result)
+    job_s, t_static = synced_ms(lambda: DeviceEncodeJob([img8], DIST, config=cfg_static))
+    (data_st,), t_static_rest = synced_ms(job_s.result)
     static_launches = {k: wr.launches for k, wr in wrappers.items()}
     if not all(static_launches.values()):
         fail(f"static tier: a kernel did not launch: {static_launches}")
@@ -691,8 +749,8 @@ def main():
         f"({100 * (over - 1):+.2f}% of the two-pass size), candidate picks AC "
         f"{int(picks[0])} DC {int(picks[1])}; job init {t_static:.1f} ms, pack + "
         f"fetch + assembly {t_static_rest:.1f} ms (host clock, synced); launches "
-        f"{json.dumps(static_launches)}; final cap {job_s.cap} ow {job_s.ow} "
-        f"ow_dc {job_s._ow_dc} [{card}]")
+        f"{json.dumps(static_launches)}; final cap {job_s.cap} ow {job_s.plan.ow} "
+        f"ow_dc {job_s.plan.ow_dc} [{card}]")
     if over >= STATIC_OVERHEAD:
         fail(f"static tier: {len(data_st)} B is not within 6% of {len(data_k)} B")
     if encode_image_device(img8, DIST, config=cfg_static, kernels=False) != data_st:
@@ -735,6 +793,245 @@ def main():
         fail("fixed 8x8: kernel encode differs from the plain versions' encode")
     log(f"encode photo8mp crop 1024x1024 (fixed 8x8): {len(c_k)} bytes, equal to "
         f"the plain-version encode on the card; launches {json.dumps(launches_8x8)}")
+
+    # -- 5. multi-image ----------------------------------------------------
+    from jxl_tiny_tpu_torch import encoder as TE
+    from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
+
+    # (a) Program A and program B queue without a host sync, in both tiers.
+    # A fault is reported with its traceback and fails the run after the
+    # rest of this phase has run.
+    sync_faults = []
+    for label, config, want in (("default", cfg, data_k), ("static", cfg_static, data_st)):
+        torch.cuda.synchronize()
+        job = None
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            job = DeviceEncodeJob([img8], DIST, config=config)
+            torch.cuda.set_sync_debug_mode(0)
+            job.pack()
+            torch.cuda.set_sync_debug_mode("error")
+            job._dispatch_b()
+        except RuntimeError:
+            sync_faults.append(label)
+            log(f"multi-image: queueing program A / B ({label}) synchronized with the "
+                f"host:\n{traceback.format_exc()}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if label in sync_faults:
+            continue
+        if job.result() != [want]:
+            fail(f"sync-free job ({label}): bytes differ")
+        log(f"multi-image: {label} tier, DeviceEncodeJob.__init__ and _dispatch_b "
+            f"queued with no host sync (sync debug mode 'error'); bytes equal")
+    del job
+    torch.cuda.synchronize()
+
+    def count_programs(names):
+        """Wrap the encoder's program functions to count their runs."""
+        runs = {n: 0 for n in names}
+        real = {n: getattr(TE, n) for n in names}
+
+        def wrap(n):
+            def run(*args, **kwargs):
+                runs[n] += 1
+                return real[n](*args, **kwargs)
+            return run
+
+        for n in names:
+            setattr(TE, n, wrap(n))
+        return runs, lambda: [setattr(TE, n, f) for n, f in real.items()]
+
+    def expect_launches(label, launches, a_runs, b_runs):
+        """Each kernel once a program: the four program A kernels once an A,
+        compact_rows once an A (tokens) and twice a B (AC and DC words),
+        copy_sections twice a B (both buffers compacted)."""
+        want = {"aq_field": a_runs, "estimate_partials": a_runs, "quantize_cells": a_runs,
+                "tokenize_rows": a_runs, "compact_rows": a_runs + 2 * b_runs,
+                "copy_sections": 2 * b_runs}
+        if launches != want:
+            fail(f"{label}: launches {launches} are not once a program ({a_runs} A, "
+                 f"{b_runs} B: {want})")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # (b) Pipelined: four 8 MP images against their serial encodes.
+    imgs4 = [img8, np.ascontiguousarray(img8[:, :, ::-1]),
+             np.ascontiguousarray(img8[:, ::-1, :]), np.ascontiguousarray(img8[:, ::-1, ::-1])]
+    mp4 = 4 * mp
+    serial, t_ser = timed(lambda: [encode_image_device(im, DIST, config=cfg) for im in imgs4])
+    if serial[0] != data_k:
+        fail("photo8mp: serial encode differs from phase 4")
+    if len(set(serial)) != 4:
+        fail("the four 8 MP images did not give four different codestreams")
+    retries0 = TE.RETRY_COUNT
+    walls_p, walls_s = [], [t_ser]
+    for turn in range(3):  # pipelined, pipelined, serial, pipelined
+        reset_counts()
+        piped, t_pipe = timed(lambda: list(TE.encode_images_device(imgs4, DIST, config=cfg)))
+        walls_p.append(t_pipe)
+        pipe_launches = {k: wr.launches for k, wr in wrappers.items()}
+        if piped != serial:
+            fail("encode_images_device: bytes or order differ from the serial encodes")
+        if not all(pipe_launches.values()):
+            fail(f"encode_images_device: a kernel of the path did not launch: {pipe_launches}")
+        if turn == 1:
+            _, t_ser2 = timed(lambda: [encode_image_device(im, DIST, config=cfg)
+                                       for im in imgs4])
+            walls_s.append(t_ser2)
+    if TE.RETRY_COUNT != retries0 or TE.RETRY_COUNT:
+        fail(f"encode_images_device retried {TE.RETRY_COUNT - retries0} images")
+    ws, wp = statistics.median(walls_s), statistics.median(walls_p)
+    prof = profiled(lambda: list(TE.encode_images_device(imgs4, DIST, config=cfg)))
+    log("pipelined photo8mp x4 under torch.profiler: " + (
+        "no device time recorded" if prof is None else
+        f"wall {prof[0]:.1f} ms, device busy {prof[1]:.1f} ms ({100 * prof[1] / prof[0]:.1f}%, "
+        f"idle {100 - 100 * prof[1] / prof[0]:.1f}%); top kernels (name, ms, calls) {prof[2]}")
+        + f" [{card}]")
+    log(f"multi-image: pipelined photo8mp x4 (photo8mp, its flips, its 180-degree turn; "
+        f"{mp4:.2f} MP, default configuration, depth 3): serial walls "
+        f"{[round(x * 1e3, 1) for x in walls_s]} ms, median {ws * 1e3:.1f} ms = "
+        f"{mp4 / ws:.2f} MP/s; pipelined walls {[round(x * 1e3, 1) for x in walls_p]} ms, "
+        f"median {wp * 1e3:.1f} ms = {mp4 / wp:.2f} MP/s; serial / pipelined "
+        f"{ws / wp:.3f}; bytes equal and in input order, 0 retries; launches "
+        f"{json.dumps(pipe_launches)} [{card}]")
+
+    # Every kernel call of a batch, held against its plain version on the
+    # same inputs (exact): the calls are recorded on a run of their own, and
+    # the comparison launches come after the run's launch counts are read.
+    plain_of = {
+        "aq_field": lambda xyb_, d: AQ.aq_field_plain(xyb_, *AQ.aq_constants(d)),
+        "estimate_partials": SK.estimate_partials_plain,
+        "quantize_cells": QK.quantize_cells_plain,
+        "tokenize_rows": lambda x_, meta_, t: TK.tokenize_rows_plain(
+            x_, meta_, t.freq_tab, t.nnz_thresh0),
+        "compact_rows": PK.compact_rows_plain,
+        "copy_sections": PK.copy_sections_plain,
+    }
+
+    def recorded(fn):
+        """fn() with every kernel wrapper's arguments recorded, call by
+        call: returns (fn's result, {kernel: [args, ...]})."""
+        calls = {name: [] for name in wrappers}
+        real = {}
+        for name, wr in wrappers.items():
+            cls = type(wr)
+            real[cls] = cls.__call__
+
+            def recording_call(self, *args, _name=name, _real=cls.__call__):
+                calls[_name].append(args)
+                return _real(self, *args)
+
+            cls.__call__ = recording_call
+        try:
+            return fn(), calls
+        finally:
+            for cls, f in real.items():
+                cls.__call__ = f
+
+    def hold_calls(label, calls):
+        """Each recorded call's kernel output against its plain version;
+        exits on any mismatch. Returns {kernel: max_abs_err}."""
+        errs = {}
+        for name, arg_list in calls.items():
+            for i, args in enumerate(arg_list):
+                outs = [wrappers[name](*args), plain_of[name](*args)]
+                outs = [list(o) if isinstance(o, tuple) else [o] for o in outs]
+                err = compare(f"{name} ({label}, call {i + 1} of {len(arg_list)}, "
+                              f"{list(args[0].shape)})", *outs)
+                errs[name] = max(errs.get(name, 0.0), err)
+                del outs
+        return errs
+
+    # (c) Batched: eight 1024x1024 crops, float and u8 sRGB, both tiers.
+    crops = [np.ascontiguousarray(img8[:, y:y + 1024, x:x + 1024])
+             for y in (0, 1024) for x in (0, 1024, 2048, 2816)]
+    crops_u8 = [linear_to_srgb_u8(c) for c in crops]
+    progs = ("analyze_batch_packed", "pack_batch_sections", "analyze_pack_batch_static")
+    for label, batch, config in (("float, default", crops, cfg),
+                                 ("u8 sRGB, default", crops_u8, cfg),
+                                 ("float, static", crops, cfg_static),
+                                 ("u8 sRGB, static", crops_u8, cfg_static)):
+        singles, t_single = timed(lambda: [encode_image_device(c, DIST, config=config)
+                                           for c in batch])
+        TE.encode_batch_device(batch, DIST, config=config)  # warm
+        runs, restore = count_programs(progs)
+        reset_counts()
+        try:
+            got, t_batch = timed(lambda: TE.encode_batch_device(batch, DIST, config=config))
+        finally:
+            restore()
+        launches = {k: wr.launches for k, wr in wrappers.items()}
+        if got != singles:
+            fail(f"encode_batch_device ({label}): bytes differ from the single encodes")
+        static = not config.optimize_code
+        a_runs = runs["analyze_pack_batch_static"] if static else runs["analyze_batch_packed"]
+        b_runs = runs["analyze_pack_batch_static"] if static else runs["pack_batch_sections"]
+        expect_launches(f"encode_batch_device ({label})", launches, a_runs, b_runs)
+        got_r, calls = recorded(lambda: TE.encode_batch_device(batch, DIST, config=config))
+        if got_r != singles:
+            fail(f"encode_batch_device ({label}, recorded): bytes differ")
+        errs = hold_calls(f"8 crops, {label}", calls)
+        del calls
+        if TE.encode_batch_device(batch, DIST, config=config, kernels=False) != singles:
+            fail(f"encode_batch_device ({label}): the plain versions' batch encode differs")
+        log(f"multi-image: batch of 8 crops 1024x1024 ({label}; 8.39 MP, 128 groups): "
+            f"bytes equal to the single encodes ({sum(map(len, got))} B) and to the "
+            f"plain versions' batch encode; every kernel call equal to its plain "
+            f"version (max_abs_err {json.dumps(errs)}); single "
+            f"encodes {t_single * 1e3:.1f} ms = {8 * 1.048576 / t_single:.2f} MP/s, "
+            f"batch {t_batch * 1e3:.1f} ms = {8 * 1.048576 / t_batch:.2f} MP/s; "
+            f"programs {json.dumps(runs)}; launches {json.dumps(launches)} [{card}]")
+
+    # (d) The four 8 MP images as one batch: 540 groups, past copy_sections'
+    # 512 groups of shared-memory offsets. Each kernel's calls are recorded,
+    # held against their plain versions and timed at the batch's shapes
+    # afterwards (device time of one batch's launches of that kernel). The
+    # wall is taken on a run of its own: the recorded run keeps every kernel
+    # input alive, so its tensors take fresh allocations.
+    TE.encode_batch_device(imgs4, DIST, config=cfg)  # warm
+    big, t_big = timed(lambda: TE.encode_batch_device(imgs4, DIST, config=cfg))
+    if big != serial:
+        fail("encode_batch_device (4 x 8 MP, 540 groups): bytes differ from the serial encodes")
+    runs, restore = count_programs(progs)
+    reset_counts()
+    try:
+        big, calls = recorded(lambda: TE.encode_batch_device(imgs4, DIST, config=cfg))
+    finally:
+        restore()
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    if big != serial:
+        fail("encode_batch_device (4 x 8 MP, 540 groups): bytes differ from the serial encodes")
+    expect_launches("encode_batch_device (4 x 8 MP)", launches, runs["analyze_batch_packed"],
+                    runs["pack_batch_sections"])
+    n_groups = calls["aq_field"][0][0].shape[0]
+    sec_groups = [a[0].shape[0] for a in calls["copy_sections"]]
+    if n_groups != 540 or max(sec_groups) <= 512:
+        fail(f"the 8 MP batch ran {n_groups} groups, copy_sections at {sec_groups}")
+    errs = hold_calls("photo8mp x4, 540 groups", calls)
+    for name, err in errs.items():
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+    batch_ms = {name: sum(cuda_time_ms(lambda a=a, wr=wrappers[name]: wr(*a), 5)
+                          for a in args) for name, args in calls.items()}
+    del calls
+    torch.cuda.empty_cache()
+    log(f"multi-image: batch of photo8mp x4 ({mp4:.2f} MP, {n_groups} groups; "
+        f"copy_sections at {sec_groups} groups): bytes equal to the serial encodes; "
+        f"every kernel call equal to its plain version (max_abs_err {json.dumps(errs)}); "
+        f"wall {t_big * 1e3:.1f} ms = {mp4 / t_big:.2f} MP/s (serial {ws * 1e3:.1f} ms, "
+        f"pipelined {wp * 1e3:.1f} ms); programs {json.dumps(runs)}; launches "
+        f"{json.dumps(launches)} [{card}]")
+    log(f"kernels at the 540-group batch's shapes (CUDA events, ms of one batch's "
+        f"launches of each kernel): {json.dumps({k: round(v, 4) for k, v in batch_ms.items()})}"
+        f" [{card}]")
+
+    if sync_faults:
+        fail(f"queueing synchronized with the host in the {sync_faults} tier(s)")
 
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,17 @@
 Device path: torch tensors on an NVIDIA H100, with hand-written CUDA
 kernels (csrc/, built with nvcc at first use) where the JAX package has
 Pallas TPU kernels. Host path: entropy-code construction and bitstream
-assembly in numpy. The port imports neither jax nor jxl_tiny_tpu; it keeps
-its own copies of the host-side modules it needs.
+assembly in numpy, with a native bit packer (cpp/, built with g++ at first
+use). The port imports neither jax nor jxl_tiny_tpu; it keeps its own
+copies of the host-side modules it needs.
+
+Entry points: encode_image_device (one image), encode_images_device
+(pipelined, a generator in input order) and encode_batch_device (N
+same-sized images in one pair of device programs).
 """
-from .encoder import DeviceEncodeJob, encode_image_device  # noqa: F401
+from .encoder import (  # noqa: F401
+    DeviceEncodeJob, encode_batch_device, encode_image_device,
+    encode_images_device,
+)
 
 __version__ = "0.1.0"

@@ -3,10 +3,12 @@
 Same bit order as the reference's BitWriter (encoder/enc_bit_writer.cc:110-142):
 the first bit written lands in the LSB of the first byte.
 
-Values are buffered as (nbits, value) arrays and packed vectorized at the end
-(numpy only).
+Values are buffered as (nbits, value) arrays and packed at the end, by the
+native packer (cpp/pack.cc) or, on a host without g++, by numpy.
 """
 import numpy as np
+
+from ..cpp.build import native_packer, pack_bits
 
 
 class BitWriter:
@@ -57,28 +59,38 @@ class BitWriter:
         self._bits_written += 8 * len(raw)
 
     def to_bytes(self) -> bytes:
+        """The bits written so far, packed LSB first; with the native packer
+        (cpp/) where g++ could build it, else with numpy (the same bytes)."""
         if not self._chunks:
             return b""
         nbits = np.concatenate([c[0] for c in self._chunks])
         values = np.concatenate([c[1] for c in self._chunks])
-        nbits = nbits.astype(np.int64)
-        pos = np.zeros(nbits.size, np.int64)
-        np.cumsum(nbits[:-1], out=pos[1:])
-        total_bits = int(pos[-1] + nbits[-1]) if nbits.size else 0
-        assert total_bits == self._bits_written
-        nbytes = (total_bits + 7) // 8
-        byte0 = pos >> 3
-        shift = (pos & 7).astype(np.uint64)
-        shifted = values << shift  # fits: <=56 bits value + 7 shift < 64
-        # Items never share a bit, so summing each byte's contributions ORs
-        # them; bincount's float64 sums are exact for these small integers.
-        acc = np.zeros(nbytes + 8, np.float64)
-        for k in range(8):
-            lane = (shifted >> np.uint64(8 * k)) & np.uint64(0xFF)
-            nz = lane != 0
-            if np.any(nz):
-                acc += np.bincount(
-                    byte0[nz] + k, weights=lane[nz].astype(np.float64),
-                    minlength=nbytes + 8,
-                )
-        return acc[:nbytes].astype(np.uint8).tobytes()
+        assert int(nbits.sum(dtype=np.int64)) == self._bits_written
+        if native_packer() is not None:
+            return pack_bits(nbits, values)
+        return pack_bits_numpy(nbits, values)
+
+
+def pack_bits_numpy(nbits: np.ndarray, values: np.ndarray) -> bytes:
+    """numpy twin of the native pack_bits: (nbits u8 <= 56, values u64)
+    items packed LSB first."""
+    nbits = nbits.astype(np.int64)
+    pos = np.zeros(nbits.size, np.int64)
+    np.cumsum(nbits[:-1], out=pos[1:])
+    total_bits = int(pos[-1] + nbits[-1]) if nbits.size else 0
+    nbytes = (total_bits + 7) // 8
+    byte0 = pos >> 3
+    shift = (pos & 7).astype(np.uint64)
+    shifted = values.astype(np.uint64) << shift  # fits: <=56 bits value + 7 shift < 64
+    # Items never share a bit, so summing each byte's contributions ORs
+    # them; bincount's float64 sums are exact for these small integers.
+    acc = np.zeros(nbytes + 8, np.float64)
+    for k in range(8):
+        lane = (shifted >> np.uint64(8 * k)) & np.uint64(0xFF)
+        nz = lane != 0
+        if np.any(nz):
+            acc += np.bincount(
+                byte0[nz] + k, weights=lane[nz].astype(np.float64),
+                minlength=nbytes + 8,
+            )
+    return acc[:nbytes].astype(np.uint8).tobytes()

@@ -1,7 +1,13 @@
-"""Command line interface: python -m jxl_tiny_tpu_torch.cli <input.pfm>
-<output.jxl> [-d D] (argument-compatible with the JAX package's cli for the
-options this port covers)."""
+"""Command line interface (argument-compatible with the JAX package's cli
+for the options this port covers):
+
+    python -m jxl_tiny_tpu_torch.cli <input.pfm> <output.jxl> [-d D]
+    python -m jxl_tiny_tpu_torch.cli <a.pfm> <b.pfm> ... <output dir> [-d D]
+
+With several inputs the output is a directory, and the images are
+pipelined through the card (encode_images_device)."""
 import argparse
+import os
 import sys
 import time
 
@@ -13,8 +19,8 @@ def main(argv=None):
         prog="cjxl_tiny_torch",
         description="JPEG XL encoder (VarDCT, photographic) on a CUDA card",
     )
-    p.add_argument("input", help="input PFM file (linear sRGB float)")
-    p.add_argument("output", help="output .jxl")
+    p.add_argument("input", nargs="+", help="input PFM file(s) (linear sRGB float)")
+    p.add_argument("output", help="output .jxl (one input) or directory (several)")
     p.add_argument("-d", "--distance", type=float, default=1.0,
                    help="Butteraugli distance target (default 1.0)")
     p.add_argument("--f32-upload", action="store_true",
@@ -33,9 +39,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from .common import EncoderConfig
-    from .encoder import encode_image_device
     from .errors import JxlTinyError
-    from .io.pfm import read_pfm
 
     config = EncoderConfig(
         optimize_code=not args.static_codes,
@@ -44,23 +48,57 @@ def main(argv=None):
     )
     upload = None if args.f32_upload else np.float16
     try:
-        img = read_pfm(args.input)
-        if not args.quiet:
-            print(f"Read {img.shape[2]}x{img.shape[1]} pixels input image.",
-                  file=sys.stderr)
-        t = time.time()
-        data = encode_image_device(img, args.distance, upload_dtype=upload,
-                                   config=config, device=args.device)
-        dt = time.time() - t
-        with open(args.output, "wb") as f:
-            f.write(data)
+        if len(args.input) > 1:
+            return _batch(args, config, upload)
+        return _single(args, config, upload)
     except (JxlTinyError, RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+
+
+def _single(args, config, upload):
+    from .encoder import encode_image_device
+    from .io.pfm import read_pfm
+
+    img = read_pfm(args.input[0])
+    if not args.quiet:
+        print(f"Read {img.shape[2]}x{img.shape[1]} pixels input image.",
+              file=sys.stderr)
+    t = time.time()
+    data = encode_image_device(img, args.distance, upload_dtype=upload,
+                               config=config, device=args.device)
+    dt = time.time() - t
+    with open(args.output, "wb") as f:
+        f.write(data)
     if not args.quiet:
         mp = img.shape[1] * img.shape[2] / 1e6
         print(f"Compressed to {len(data)} bytes ({8 * len(data) / (1e6 * mp):.3f} "
               f"bpp) in {dt:.2f}s ({mp / dt:.1f} MP/s).", file=sys.stderr)
+    return 0
+
+
+def _batch(args, config, upload):
+    """Pipelined multi-image encode into an output directory."""
+    from .encoder import encode_images_device
+    from .io.pfm import read_pfm
+
+    if not os.path.isdir(args.output):
+        print(f"error: several inputs need an output directory: {args.output}",
+              file=sys.stderr)
+        return 1
+    imgs = (read_pfm(path) for path in args.input)
+    t = time.time()
+    for path, data in zip(args.input, encode_images_device(
+            imgs, args.distance, upload_dtype=upload, config=config,
+            device=args.device)):
+        out = os.path.join(args.output, os.path.splitext(os.path.basename(path))[0] + ".jxl")
+        with open(out, "wb") as f:
+            f.write(data)
+        if not args.quiet:
+            print(f"{path} -> {out} ({len(data)} bytes)", file=sys.stderr)
+    if not args.quiet:
+        print(f"Batch: {len(args.input)} images in {time.time() - t:.2f}s.",
+              file=sys.stderr)
     return 0
 
 

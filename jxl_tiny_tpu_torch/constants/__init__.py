@@ -118,3 +118,10 @@ DCT_SCALE_16_TO_2 = np.float32(0.901764195028874394)
 # saturate identically so cross-pipeline bit-equality holds.
 AC_COEF_CLAMP = 32767
 DC_VALUE_CLAMP = 16383
+
+# --- DC-section layout entries (ops/dc_kernels.py) ---
+DC_RAW = 0x8000  # tag bit of an entry emitted as raw bits (low byte: count)
+DC_PAD = 0xFFFF  # tag of a zero-width padding entry
+# The two raw entries that open every DC section (EncoderTables.dc_header
+# on the device): 2 bits of 0, then 4 bits of 3.
+DC_HEADER = (((DC_RAW | 2) << 16) | 0, ((DC_RAW | 4) << 16) | 3)

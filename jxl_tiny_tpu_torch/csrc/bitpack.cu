@@ -172,6 +172,7 @@ extern "C" int bitpack_launch(const int* data, const int* nbits, const int* pos,
     return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
   }
   const int chunks = (cap + CHUNK - 1) / CHUNK;
+  // One grid row a group: up to 65,535 groups (the grid's y limit).
   const dim3 grid(chunks, groups);
   const bool vec = cap % 4 == 0 && (uintptr_t)data % 16 == 0 && (uintptr_t)nbits % 16 == 0;
   if (vec) {

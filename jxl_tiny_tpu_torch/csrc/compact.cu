@@ -168,6 +168,8 @@ copy_sections_kernel(const int* __restrict__ packed, const long long* __restrict
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const long long* po = offs;
   const long long* pn = nblk;
+  // Offsets are 64-bit and groups an int: any group count; up to MAXG
+  // groups the offsets are read from shared memory, beyond from global.
   if (groups <= MAXG) {
     for (int i = t; i < groups; i += COPY_THREADS) {
       s_off[i] = offs[i];
@@ -203,6 +205,9 @@ extern "C" int compact_rows_launch(const int* tok, const int* cnt,
                                    const long long* start, int* stream,
                                    int groups, int rows, int cap, void* stream_h) {
   if (groups > 0 && rows > 0) {
+    // An int grid of groups * tiles CTAs: up to 65,075,262 groups at cap
+    // 32768 (33 tiles), 8,355,967 at cap 262144; starts and stream offsets
+    // are 64-bit.
     const int tiles = (int)(((long long)cap + W + TILE - 1) / TILE);
     compact_rows_kernel<<<groups * tiles, THREADS, 0, (cudaStream_t)stream_h>>>(
         tok, cnt, start, stream, rows, cap, tiles);

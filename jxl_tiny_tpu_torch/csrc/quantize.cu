@@ -92,6 +92,8 @@ quantize_kernel(const float* __restrict__ coef8, const float* __restrict__ coef_
                 int* __restrict__ lastnz_out, int quads, const Params P) {
   __shared__ __align__(16) float stage[WARPS][3 * 128];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // int quad and int g * 1024 + cell below: exact up to 2,097,151 groups
+  // (2^21 - 1); the coefficient and output offsets are size_t.
   const int quad = blockIdx.x * WARPS + warp;  // g * 256 + qy * 16 + qx
   if (quad >= quads) return;
   const int g = quad >> 8, qy = (quad >> 4) & 15, qx = quad & 15;

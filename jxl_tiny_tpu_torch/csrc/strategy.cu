@@ -243,6 +243,8 @@ strategy_kernel(const float* __restrict__ coef8, const float* __restrict__ coef_
                 const float* __restrict__ qm8, const float* __restrict__ qm16,
                 float* __restrict__ p8, float* __restrict__ pv,
                 float* __restrict__ ph, int groups, float k_nz) {
+  // unsigned items and cells (item * 2 + h for the 8x8 family): exact up
+  // to 4,194,303 groups (cells < 2^32); pointer offsets are size_t.
   const unsigned items = (unsigned)groups * 512;
   if (blockIdx.y == 0) {
     walk<16, 1024>(coef8, q8, m8, fac8, qm8, p8, items, k_nz);

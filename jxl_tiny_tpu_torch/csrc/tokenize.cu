@@ -51,6 +51,8 @@ tokenize_kernel(const int* __restrict__ xs, const int* __restrict__ metas,
                 const int* __restrict__ freq, int* __restrict__ out, int n,
                 int thresh) {
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  // int row of n = groups * 3072 rows: exact up to 699,050 groups
+  // (n < 2^31); the row's offset is size_t.
   const int row = blockIdx.x * ROWS_PER_CTA + warp;
   if (row >= n) return;  // whole warp exits together
   const int meta = metas[row];

@@ -1,44 +1,66 @@
-"""Top-level encoder: image -> JPEG XL codestream.
+"""Top-level encoder: image(s) -> JPEG XL codestream(s).
 
 Counterpart of the JAX package's encoder.DeviceEncodeJob /
-encode_image_device, single device, every tier of EncoderConfig.
+encode_image_device / encode_images_device / encode_batch_device, single
+device, every tier of EncoderConfig.
+
+A job (DeviceEncodeJob) encodes N same-sized images, one image being
+N = 1, with every kernel launching once a program over all N*G groups.
 
 Two-pass entropy codes (optimize_code=True, the default): two device
 programs and a host stage between them
 
-  program A (ops.pipeline.analyze_image_packed): pixels -> token stream,
-      base-64 histograms, DC-section layout (kernels: AQ, strategy
-      estimates, quantize, tokenize, row compaction)
-  host: cluster the histograms, build the prefix codes (entropy/, numpy)
-  program B (ops.dc_kernels.pack_all_sections): tokens -> section words
+  program A (ops.pipeline.analyze_batch_packed): pixels -> token stream,
+      per-image base-64 histograms, DC-section layout (kernels: AQ,
+      strategy estimates, quantize, tokenize, row compaction)
+  host: cluster each image's histograms, build its prefix codes
+      (entropy/, numpy)
+  program B (ops.dc_kernels.pack_batch_sections): tokens -> section words
       (kernels: row compaction for word placement, section copy)
-  host: headers, TOC and assembly (bitstream/, numpy)
+  host: headers, TOC and assembly (bitstream/, numpy + the native packer)
 
 One-pass static codes (optimize_code=False): A and B run as one program
-(ops.dc_kernels.analyze_pack_static) with candidate code tables trained
-beforehand; the device picks the cheapest candidates and the host only
-assembles.
+(ops.dc_kernels.analyze_pack_batch_static) with candidate code tables
+trained beforehand; the device picks each image's cheapest candidates and
+the host only assembles.
+
+Queueing: neither program waits for the card while it is queued. Pixels go
+up from pinned memory on an upload stream that the compute stream waits
+for; every result the host reads (totals + histograms, section sizes,
+section words) is copied into pinned memory on a fetch stream that waits
+only for the work queued before it, and the host waits on that copy's
+event. So while one job's program runs, the host can queue the next
+job's upload and program A (encode_images_device), and
+`ready_for_pack` can ask, without waiting, whether program A is done.
+
+Entry points: encode_image_device (one image, one job),
+encode_images_device (a pipeline of one-image jobs in input order) and
+encode_batch_device (one job of N images: one upload, one histogram read,
+one section read).
 
 The capacity retries are the JAX package's own rules, kept so that the two
 packages pick the same buckets: the token cap, the section word budget `ow`
 checked against var_safe_words, and the fallback from the compacted word
 buffer to per-group rows when the sections outgrow `wcap`.
 """
+import functools
+from collections import deque
+
 import numpy as np
 import torch
 
 from . import constants as C
 from .bitstream import sections as S
 from .bitstream.bit_writer import BitWriter
-from .common import DEFAULT_CONFIG, ImageDim, clamp_distance, compute_distance_params, div_ceil
+from .common import DEFAULT_CONFIG, ImageDim, clamp_distance, compute_distance_params
 from .entropy.entropy_write import (
     build_ac_device_code, build_dc_device_code, load_static_codes,
 )
 from .errors import InvalidInputError
-from .ops.dc_kernels import analyze_pack_static, pack_all_sections
+from .ops.dc_kernels import analyze_pack_batch_static, pack_batch_sections
 from .ops.pack_kernels import VAR_FAN, ac_base64_map, var_safe_words
-from .ops.pipeline import analyze_image_packed
-from .tables import numpy_tables, tables_from_numpy
+from .ops.pipeline import analyze_batch_packed, group_valid_blocks
+from .tables import canonical_device, device_tables, to_device
 
 # Below this pixel count a float16 upload is upgraded to float32: f16
 # mantissa noise tilts the adaptive-quant heuristics on very flat content
@@ -46,6 +68,13 @@ from .tables import numpy_tables, tables_from_numpy
 F16_AUTO_F32_PIXELS = 2e6
 _CAP_BUCKETS = (32768, 65536, 131072, 262144)
 _OW_BUCKETS = (8192, 32768, 131072)
+_WCAP_MAX = 2 * 1024 * 1024
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float16): torch.float16,
+                 np.dtype(np.float32): torch.float32}
+
+# Per-image retries that encode_images_device made in this process (a job
+# re-run from its pixels after an error); chip_smoke.py requires none.
+RETRY_COUNT = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,6 +96,110 @@ def _next_bucket(buckets, value):
     raise ValueError(f"value {value} exceeds largest bucket {buckets[-1]}")
 
 
+# ---------------------------------------------------------------------------
+# Host <-> card transfers that never wait for queued work
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device, purpose):
+    """One stream a card for each purpose ("upload", "fetch")."""
+    return torch.cuda.Stream(device)
+
+
+def _upload_dtype(img_dtype, pixels, upload_dtype):
+    """The type the pixels travel in: u8 stays u8 (sRGB, linearized on the
+    device); float goes as upload_dtype, float32 when that is None or when
+    a float16 image would be small (F16_AUTO_F32_PIXELS)."""
+    if img_dtype == np.uint8:
+        return np.dtype(np.uint8)
+    if upload_dtype == np.float16 and pixels < F16_AUTO_F32_PIXELS:
+        upload_dtype = None
+    return np.dtype(np.float32 if upload_dtype is None else upload_dtype)
+
+
+def _upload_pixels(imgs, dtype, device) -> torch.Tensor:
+    """Host pixels -> a tensor of `dtype` on `device`: one [3, H, W] array,
+    or a list of same-shaped ones as [N, 3, H, W].
+
+    On the card each image is converted straight into one pinned buffer
+    (no stacked copy on the host), whose copy runs on the upload stream;
+    the compute stream waits for the copy's event, and the tensor is
+    recorded on the compute stream so that the caching allocator does not
+    reuse it while work queued there may still read it."""
+    batch = isinstance(imgs, list)
+    if device.type != "cuda":
+        arr = np.stack(imgs) if batch else imgs
+        return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
+    shape = (len(imgs),) + imgs[0].shape if batch else imgs.shape
+    host = torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True)
+    dst = host.numpy()
+    for k, img in enumerate(imgs if batch else [imgs]):
+        np.copyto(dst[k] if batch else dst, img, casting="same_kind")
+    upload = _side_stream(canonical_device(device), "upload")
+    with torch.cuda.stream(upload):
+        up = host.to(device, non_blocking=True)
+    compute = torch.cuda.current_stream(device)
+    compute.wait_stream(upload)
+    up.record_stream(compute)
+    return up
+
+
+class _Fetch:
+    """A device tensor's copy to the host, queued at once and waited for
+    only when read. On the card it goes into pinned memory on the fetch
+    stream, after the event `after` of the compute stream (default: one
+    recorded now, so the copy waits for the work queued so far and not for
+    work queued later); `ready()` polls the copy's event. On the CPU it is
+    the tensor itself."""
+
+    def __init__(self, t, after=None):
+        self._event = self.after = None
+        if not t.is_cuda:
+            self._host = t
+            return
+        if after is None:
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(t.device))
+        self.after = after
+        fetch = _side_stream(canonical_device(t.device), "fetch")
+        fetch.wait_event(after)
+        with torch.cuda.stream(fetch):
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+        t.record_stream(fetch)
+        self._event = torch.cuda.Event()
+        self._event.record(fetch)
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _static_tables(device):
+    sc = load_static_codes()
+    return tuple(
+        to_device(a, device)
+        for a in (sc.ac_tables, sc.dc_tables, sc.ac_depths, sc.dc_depths)
+    )
+
+
+def _static_code_tables(device):
+    """(d_ac, d_dc, ac_depths, dc_depths) of the one-pass tier's candidate
+    codes on `device`, uploaded once a device (read-only)."""
+    return _static_tables(canonical_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Sections and assembly
+# ---------------------------------------------------------------------------
+
+
 def _writer_from_bits(raw_bytes: np.ndarray, nbits: int) -> BitWriter:
     """BitWriter holding `nbits` bits whose byte image is raw_bytes (LSB
     first); trailing bits of the last partial byte are zeroed."""
@@ -81,17 +214,17 @@ def _writer_from_bits(raw_bytes: np.ndarray, nbits: int) -> BitWriter:
 
 
 def assemble_codestream(dim, distp, ac_writers, ac_code, dc_writers, dc_code) -> bytes:
-    """Headers, global sections, TOC and the device-packed sections.
-    ac_writers/dc_writers: callables returning the per-group BitWriters."""
+    """Headers, global sections, TOC and the device-packed sections
+    (ac_writers / dc_writers: one BitWriter a section)."""
     sections = []
     w = BitWriter()
     S.write_dc_global(w, distp, dim.num_dc_groups, dc_code)
     sections.append(w)
-    sections.extend(dc_writers())
+    sections.extend(dc_writers)
     w = BitWriter()
     S.write_ac_global(w, dim.num_groups, ac_code)
     sections.append(w)
-    sections.extend(ac_writers())
+    sections.extend(ac_writers)
     out = BitWriter()
     S.write_file_header(out, dim.xsize, dim.ysize)
     S.write_frame_header(out, distp.x_qm_scale, distp.epf_iters)
@@ -99,240 +232,281 @@ def assemble_codestream(dim, distp, ac_writers, ac_code, dc_writers, dc_code) ->
     return out.to_bytes()
 
 
+def _used_words(bits, offs):
+    """Words the compacted buffer actually needs for these sections."""
+    nblk = (bits + (32 * 128 - 1)) // (32 * 128)
+    return int(offs[-1] + nblk[-1] * 128) if len(offs) else 0
+
+
+def _wcap(n_sections, ow):
+    return min(1 << int(n_sections * ow).bit_length(), _WCAP_MAX)
+
+
+class _SectionPlan:
+    """Program B's section buffers for the ng AC and ngd DC sections of n
+    images, with the JAX package's retry rules: `ow` / `ow_dc` grow until
+    the largest section fits var_safe_words, and a compacted buffer that
+    would outgrow its `wcap` falls back to per-section rows."""
+
+    def __init__(self, n, ng, ngd, ow):
+        self.n, self.ng, self.ngd = n, ng, ngd
+        self.ow, self.ow_dc = ow, 8192
+        self.compact_ac = self.compact_dc = True
+
+    @property
+    def wcap(self):
+        return _wcap(self.ng, self.ow)
+
+    @property
+    def wcap_dc(self):
+        return _wcap(self.ngd, self.ow_dc)
+
+    def sizes(self, kernels=True):
+        """Program B's size arguments."""
+        return dict(
+            ow_ac=self.ow, wcap_ac=self.wcap, ow_dc=self.ow_dc,
+            wcap_dc=self.wcap_dc, compact_ac=self.compact_ac,
+            compact_dc=self.compact_dc, kernels=kernels,
+        )
+
+    def split(self, small):
+        """`small` -> (ac_bits, ac_offs, dc_bits, dc_offs, totals, k_ac,
+        k_dc); the last three are the one-pass tier's and empty otherwise."""
+        ends = np.cumsum([0, self.ng, self.ng, self.ngd, self.ngd, self.ng, self.n, self.n])
+        return tuple(small[a:b] for a, b in zip(ends[:-1], ends[1:]))
+
+    def grow(self, small) -> bool:
+        """Apply the first rule that program B's section sizes break; True
+        when program B must run again with the grown sizes."""
+        ac_bits, ac_offs, dc_bits, dc_offs = self.split(small)[:4]
+        margin = VAR_FAN + 1
+        need_ac = (int(ac_bits.max(initial=0)) + 31) // 32
+        if need_ac > var_safe_words(self.ow):
+            self.ow = _next_bucket(_OW_BUCKETS, need_ac + margin)
+            return True
+        need_dc = (int(dc_bits.max(initial=0)) + 31) // 32
+        if need_dc > var_safe_words(self.ow_dc):
+            self.ow_dc = _next_bucket(_OW_BUCKETS, need_dc + margin)
+            return True
+        if self.compact_ac and _used_words(ac_bits, ac_offs) > self.wcap:
+            self.compact_ac = False
+            return True
+        if self.compact_dc and _used_words(dc_bits, dc_offs) > self.wcap_dc:
+            self.compact_dc = False
+            return True
+        return False
+
+    def read(self, out_b, small, after=None):
+        """Both kinds of section words in one read (both copies queued
+        before either is waited for) -> (AC writers, DC writers). after:
+        the compute stream's event that program B's outputs are complete at
+        (the copies then do not wait for work queued since)."""
+        ac_bits, ac_offs, dc_bits, dc_offs = self.split(small)[:4]
+        kinds = ((out_b["ac_words"], ac_bits, ac_offs, self.compact_ac, self.wcap),
+                 (out_b["dc_words"], dc_bits, dc_offs, self.compact_dc, self.wcap_dc))
+        fetches = []
+        for words, bits, offs, compact, wcap in kinds:
+            if compact:
+                # Download word count, 65536-quantized.
+                dl = min(wcap, -(-max(_used_words(bits, offs), 1) // 65536) * 65536)
+                fetches.append(_Fetch(words[:dl], after))
+            else:
+                maxw = (int(bits.max(initial=0)) + 31) // 32
+                fetches.append(_Fetch(words[:, : max(maxw, 1)], after))
+        out = []
+        for f, (_, bits, offs, compact, _) in zip(fetches, kinds):
+            words = f.numpy()
+            if compact:
+                rows = [words[offs[k]: offs[k] + (bits[k] + 31) // 32]
+                        for k in range(len(bits))]
+            else:
+                rows = [np.ascontiguousarray(words[k, : (int(bits[k]) + 31) // 32])
+                        for k in range(len(bits))]
+            out.append([_writer_from_bits(r.view(np.uint8), int(b))
+                        for r, b in zip(rows, bits)])
+        return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# The job: N same-sized images (one image is N = 1)
+# ---------------------------------------------------------------------------
+
+
 class DeviceEncodeJob:
-    """One image through the device-packed path. Stages:
+    """N same-sized images through the device-packed path, in one pair of
+    device programs (one image: N = 1). Every kernel launches once a
+    program, over all N*G groups; each image gets its own entropy codes and
+    codestream. Stages:
 
-      __init__  uploads the pixels and runs program A
-      pack()    reads A's totals and histograms, builds the entropy codes,
-                runs program B
-      result()  reads the section words and assembles the codestream
+      __init__  queues the pixel upload and program A (and the copy of its
+                totals and histograms to the host); returns without waiting
+      pack()    reads A's totals and histograms, builds each image's
+                entropy codes, queues program B
+      result()  reads the section words and assembles the N codestreams
 
-    In the one-pass tier __init__ runs the combined program, pack() only
+    In the one-pass tier __init__ queues the combined program, pack() only
     checks the token capacity, and result() reads the device's candidate
     picks.
 
-    device: None for the CUDA card (raises without one), or e.g. "cpu".
-    kernels: False runs the plain torch versions of the kernels instead
-    (to check the kernels against them on the card)."""
+    imgs: a sequence of [3, H, W] images of one shape and one type, float
+    (linear sRGB, uploaded as upload_dtype) or uint8 (sRGB samples,
+    linearized on the device). device: None for the CUDA card (raises
+    without one), or e.g. "cpu". tables: the encoder's tables on that
+    device (default: built once a device and shared). kernels: False runs
+    the plain torch versions of the kernels instead (to check the kernels
+    against them on the card)."""
 
-    def __init__(self, img, distance=1.0, upload_dtype=np.float16, cap=32768,
+    def __init__(self, imgs, distance=1.0, upload_dtype=np.float16, cap=32768,
                  ow=8192, config=None, device=None, tables=None, kernels=True):
-        if img.ndim != 3 or img.shape[0] != 3:
-            raise InvalidInputError(f"expected a [3, H, W] image, got {img.shape}")
+        imgs = [np.asarray(im) for im in imgs]
+        if not imgs or any(im.ndim != 3 or im.shape[0] != 3 for im in imgs):
+            raise InvalidInputError("expected N >= 1 [3, H, W] images")
+        if any(im.shape != imgs[0].shape or im.dtype != imgs[0].dtype for im in imgs):
+            raise InvalidInputError("the images of a job need one shape and one type")
         self.config = DEFAULT_CONFIG if config is None else config
         self.device = resolve_device(device)
         self.kernels = kernels
-        self.tables = (
-            tables_from_numpy(numpy_tables(), self.device) if tables is None else tables
-        )
-        distance = clamp_distance(distance)
-        self.distp = compute_distance_params(distance)
-        self.dim = ImageDim(img.shape[2], img.shape[1])
+        self.tables = device_tables(self.device) if tables is None else tables
+        self.distp = compute_distance_params(clamp_distance(distance))
+        self.n, (_, h, w) = len(imgs), imgs[0].shape
+        self.dim = ImageDim(w, h)
         self.cap = cap
-        self.ow = ow
-        self._ow_dc = 8192
-        yb = [div_ceil(min(256, img.shape[1] - gy * 256), 8)
-              for gy in range(self.dim.ysize_groups) for _ in range(self.dim.xsize_groups)]
-        xb = [div_ceil(min(256, img.shape[2] - gx * 256), 8)
-              for _ in range(self.dim.ysize_groups) for gx in range(self.dim.xsize_groups)]
-        self._yb = torch.tensor(yb, dtype=torch.int32, device=self.device)
-        self._xb = torch.tensor(xb, dtype=torch.int32, device=self.device)
-        if img.dtype != np.uint8:  # uint8 is sRGB, linearized on the device
-            if (upload_dtype == np.float16
-                    and img.shape[1] * img.shape[2] < F16_AUTO_F32_PIXELS):
-                upload_dtype = None
-            img = img.astype(np.float32 if upload_dtype is None else upload_dtype)
-        self._up = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        self._compact_ac = True
-        self._compact_dc = True
+        self.plan = _SectionPlan(
+            self.n, self.n * self.dim.num_groups, self.n * self.dim.num_dc_groups, ow
+        )
+        self._yb, self._xb = group_valid_blocks(h, w, self.device, self.n)
+        self._up = _upload_pixels(
+            imgs, _upload_dtype(imgs[0].dtype, h * w, upload_dtype), self.device
+        )
         self._packed = False
         self._static = not self.config.optimize_code
         if self._static:
-            self._static_codes = sc = load_static_codes()
-
-            def dev(a):
-                return torch.from_numpy(a).to(self.device)
-
-            self._d_ac, self._d_dc = dev(sc.ac_tables), dev(sc.dc_tables)
-            self._ac_depths, self._dc_depths = dev(sc.ac_depths), dev(sc.dc_depths)
+            self._static_codes = load_static_codes()
+            self._d_ac, self._d_dc, self._ac_depths, self._dc_depths = (
+                _static_code_tables(self.device)
+            )
             self._dispatch_b()
         else:
-            self.out_a = self._run_a(self.cap)
+            self._start_a()
 
     def _run_a(self, cap):
-        return analyze_image_packed(
+        return analyze_batch_packed(
             self._up, self._yb, self._xb, self.distp, cap, self.tables,
             cfl=self.config.optimize_chroma_from_luma,
             blocks=self.config.optimize_block_sizes, kernels=self.kernels,
         )
 
-    def _sync_totals_hists(self):
+    def _start_a(self):
+        """Queue program A at the current cap and the copy of its totals
+        and histograms (one transfer) to the host."""
+        self.out_a = self._run_a(self.cap)
         t, h = self.out_a["totals"], self.out_a["hists"]
-        both = torch.cat([t.to(torch.int64), h.reshape(-1).to(torch.int64)]).cpu().numpy()
-        return both[: t.shape[0]], both[t.shape[0]:].reshape(h.shape)
+        self._totals_hists = _Fetch(torch.cat([t, h.reshape(-1)]))
+
+    def _read_totals_hists(self):
+        both = self._totals_hists.numpy()
+        return both[: self.plan.ng], both[self.plan.ng:].reshape(self.out_a["hists"].shape)
+
+    def ready_for_pack(self) -> bool:
+        """True when pack() would not wait for the card: program A's totals
+        and histograms (one-pass tier: the program's section sizes) have
+        reached the host. Always True on the CPU."""
+        return (self._small if self._static else self._totals_hists).ready()
+
+    def _cap_fits(self, totals) -> bool:
+        """False (and the cap raised to the next bucket) when a group's
+        token count overflowed the cap the program ran at."""
+        if int(totals.max(initial=0)) <= self.cap:
+            return True
+        self.cap = _next_bucket(_CAP_BUCKETS, int(totals.max()))
+        return False
 
     def pack(self):
         """Read program A's totals and histograms (re-running A at a larger
-        token cap when a group overflowed), build the entropy codes, run
-        program B. Idempotent. One-pass tier: the combined program already
-        ran; only the token-capacity check remains."""
+        token cap when a group overflowed), build each image's entropy
+        codes, queue program B. Idempotent once it has succeeded. One-pass
+        tier: the combined program already runs; only the token-capacity
+        check remains."""
         if self._packed:
             return
-        self._packed = True
         if self._static:
-            g2 = 2 * (self.dim.num_groups + self.dim.num_dc_groups)
-            totals = self._small_sync()[g2:-2]
-            if int(totals.max(initial=0)) > self.cap:
-                self.cap = _next_bucket(_CAP_BUCKETS, int(totals.max()))
+            if not self._cap_fits(self.plan.split(self._small_sync())[4]):
                 self._dispatch_b()
+            self._packed = True
             return
-        totals, hists = self._sync_totals_hists()
-        if int(totals.max(initial=0)) > self.cap:
-            self.cap = _next_bucket(_CAP_BUCKETS, int(totals.max()))
-            self.out_a = self._run_a(self.cap)
-            totals, hists = self._sync_totals_hists()
-        self.full_code, d_table = build_ac_device_code(hists[0], ac_base64_map())
-        self.dc_code, d_table_dc = build_dc_device_code(hists[1][: C.NUM_DC_CONTEXTS])
+        totals, hists = self._read_totals_hists()
+        if not self._cap_fits(totals):
+            self._start_a()
+            totals, hists = self._read_totals_hists()
+        base_map = ac_base64_map()
+        d_ac = np.empty((self.n, 9, 64), np.float32)
+        d_dc = np.empty((self.n, 9, 64), np.float32)
+        self.full_codes, self.dc_codes = [], []
+        for k in range(self.n):
+            code, d_ac[k] = build_ac_device_code(hists[k, 0], base_map)
+            self.full_codes.append(code)
+            code, d_dc[k] = build_dc_device_code(hists[k, 1][: C.NUM_DC_CONTEXTS])
+            self.dc_codes.append(code)
         self._stream = self.out_a["stream"][:, : self.cap].contiguous()
-        self._d_ac = torch.from_numpy(d_table).to(self.device)
-        self._d_dc = torch.from_numpy(d_table_dc).to(self.device)
+        self._d_ac = to_device(d_ac, self.device)
+        self._d_dc = to_device(d_dc, self.device)
         self._dispatch_b()
+        self._packed = True
 
     def _dispatch_b(self):
-        g, gd = self.dim.num_groups, self.dim.num_dc_groups
-        self.wcap = min(1 << int(g * self.ow).bit_length(), 2 * 1024 * 1024)
-        self._wcap_dc = min(1 << int(gd * self._ow_dc).bit_length(), 2 * 1024 * 1024)
-        sizes = dict(
-            ow_ac=self.ow, wcap_ac=self.wcap, ow_dc=self._ow_dc,
-            wcap_dc=self._wcap_dc, compact_ac=self._compact_ac,
-            compact_dc=self._compact_dc, kernels=self.kernels,
-        )
+        """Queue program B (one-pass tier: the combined program) at the
+        plan's sizes, and the copy of its section sizes to the host."""
+        sizes = self.plan.sizes(self.kernels)
         if self._static:
-            self.out_b = analyze_pack_static(
+            self.out_b = analyze_pack_batch_static(
                 self._up, self._yb, self._xb, self._d_ac, self._d_dc,
                 self._ac_depths, self._dc_depths, self.distp, self.cap,
                 self.tables, cfl=self.config.optimize_chroma_from_luma,
                 blocks=self.config.optimize_block_sizes, **sizes,
             )
         else:
-            self.out_b = pack_all_sections(
+            self.out_b = pack_batch_sections(
                 self._stream, self.out_a["totals"], self._d_ac,
                 self.out_a["dc_layout"], self._d_dc, **sizes,
             )
+        self._small = _Fetch(self.out_b["small"])
         self._small_np = None
-        self._ac_list = None
+        self._sections = None
 
     def _small_sync(self):
-        """One device->host copy of [ac_bits, ac_offs, dc_bits, dc_offs]
-        (one-pass tier: followed by [totals, k_ac, k_dc])."""
+        """[ac_bits, ac_offs, dc_bits, dc_offs] on the host (one-pass tier:
+        followed by [totals, k_ac[N], k_dc[N]])."""
         if self._small_np is None:
-            self._small_np = self.out_b["small"].cpu().numpy()
+            self._small_np = self._small.numpy()
         return self._small_np
 
-    @staticmethod
-    def _used_words(bits, offs):
-        """Words the compacted buffer actually needs for these sections."""
-        nblk = (bits + (32 * 128 - 1)) // (32 * 128)
-        return int(offs[-1] + nblk[-1] * 128) if len(offs) else 0
-
-    def _dl_words(self, bits, offs, wcap):
-        """Download word count (65536-quantized) for a compacted buffer."""
-        used = self._used_words(bits, offs)
-        assert used <= wcap, "caller must fall back to the uncompacted rows"
-        return min(wcap, -(-max(used, 1) // 65536) * 65536)
-
-    @staticmethod
-    def _writers(words, bits, offs):
-        return [
-            _writer_from_bits(
-                words[offs[k]: offs[k] + (bits[k] + 31) // 32].view(np.uint8),
-                int(bits[k]),
-            )
-            for k in range(len(bits))
-        ]
-
-    @staticmethod
-    def _writers_rows(words_dev, bits):
-        """Per-section writers from uncompacted [n, ow] rows."""
-        maxw = (int(bits.max(initial=0)) + 31) // 32
-        words = words_dev[:, : max(maxw, 1)].cpu().numpy()
-        return [
-            _writer_from_bits(
-                np.ascontiguousarray(words[k, : (int(bits[k]) + 31) // 32]).view(np.uint8),
-                int(bits[k]),
-            )
-            for k in range(len(bits))
-        ]
-
     def _fetch_sections(self):
-        if self._ac_list is not None:
+        if self._sections is not None:
             return
-        g, gd = self.dim.num_groups, self.dim.num_dc_groups
-        margin = VAR_FAN + 1
-        while True:
-            small = self._small_sync()
-            ac_bits, ac_offs = small[:g], small[g: 2 * g]
-            dc_bits, dc_offs = small[2 * g: 2 * g + gd], small[2 * g + gd: 2 * g + 2 * gd]
-            need_ac = (int(ac_bits.max(initial=0)) + 31) // 32
-            if need_ac > var_safe_words(self.ow):
-                self.ow = _next_bucket(_OW_BUCKETS, need_ac + margin)
-                self._dispatch_b()
-                continue
-            need_dc = (int(dc_bits.max(initial=0)) + 31) // 32
-            if need_dc > var_safe_words(self._ow_dc):
-                self._ow_dc = _next_bucket(_OW_BUCKETS, need_dc + margin)
-                self._dispatch_b()
-                continue
-            if self._compact_ac and self._used_words(ac_bits, ac_offs) > self.wcap:
-                self._compact_ac = False
-                self._dispatch_b()
-                continue
-            if self._compact_dc and self._used_words(dc_bits, dc_offs) > self._wcap_dc:
-                self._compact_dc = False
-                self._dispatch_b()
-                continue
-            break
-        ac_words, dc_words = self.out_b["ac_words"], self.out_b["dc_words"]
-        if self._compact_ac and self._compact_dc:
-            # Both compacted buffers in one device->host copy.
-            dl_ac = self._dl_words(ac_bits, ac_offs, self.wcap)
-            dl_dc = self._dl_words(dc_bits, dc_offs, self._wcap_dc)
-            both = torch.cat([ac_words[:dl_ac], dc_words[:dl_dc]]).cpu().numpy()
-            self._ac_list = self._writers(both[:dl_ac], ac_bits, ac_offs)
-            self._dc_list = self._writers(both[dl_ac:], dc_bits, dc_offs)
-            return
-        if self._compact_ac:
-            dl = self._dl_words(ac_bits, ac_offs, self.wcap)
-            self._ac_list = self._writers(ac_words[:dl].cpu().numpy(), ac_bits, ac_offs)
-        else:
-            self._ac_list = self._writers_rows(ac_words, ac_bits)
-        if self._compact_dc:
-            dl = self._dl_words(dc_bits, dc_offs, self._wcap_dc)
-            self._dc_list = self._writers(dc_words[:dl].cpu().numpy(), dc_bits, dc_offs)
-        else:
-            self._dc_list = self._writers_rows(dc_words, dc_bits)
+        while self.plan.grow(self._small_sync()):
+            self._dispatch_b()
+        self._sections = self.plan.read(self.out_b, self._small_sync(), self._small.after)
 
-    def _ac_writers(self):
-        self._fetch_sections()
-        return self._ac_list
-
-    def _dc_writers(self):
-        self._fetch_sections()
-        return self._dc_list
-
-    def result(self) -> bytes:
+    def result(self) -> list:
+        """The N codestreams, in the order of the images."""
         self.pack()
         if self._static:
             # ACGlobal / DCGlobal must serialize the candidate tables the
             # device packed with; the picks are the same in every
             # re-dispatch (same histograms).
-            small = self._small_sync()
-            self.full_code = self._static_codes.ac_codes[int(small[-2])]
-            self.dc_code = self._static_codes.dc_codes[int(small[-1])]
-        return assemble_codestream(
-            self.dim, self.distp, self._ac_writers, self.full_code,
-            self._dc_writers, self.dc_code,
-        )
+            k_ac, k_dc = self.plan.split(self._small_sync())[5:]
+            self.full_codes = [self._static_codes.ac_codes[k] for k in k_ac]
+            self.dc_codes = [self._static_codes.dc_codes[k] for k in k_dc]
+        self._fetch_sections()
+        ac_w, dc_w = self._sections
+        g, gd = self.dim.num_groups, self.dim.num_dc_groups
+        return [
+            assemble_codestream(
+                self.dim, self.distp, ac_w[k * g: (k + 1) * g], self.full_codes[k],
+                dc_w[k * gd: (k + 1) * gd], self.dc_codes[k],
+            )
+            for k in range(self.n)
+        ]
 
 
 def encode_image_device(img: np.ndarray, distance: float = 1.0,
@@ -344,7 +518,90 @@ def encode_image_device(img: np.ndarray, distance: float = 1.0,
 
     device=None runs on the CUDA card and raises without one; pass
     device="cpu" to run the plain torch versions on the CPU."""
-    job = DeviceEncodeJob(img, distance, upload_dtype, cap, ow, config=config,
-                          device=device, kernels=kernels)
-    job.pack()
-    return job.result()
+    return DeviceEncodeJob([img], distance, upload_dtype, cap, ow, config=config,
+                           device=device, kernels=kernels).result()[0]
+
+
+# ---------------------------------------------------------------------------
+# Several images
+# ---------------------------------------------------------------------------
+
+
+def encode_batch_device(imgs, distance: float = 1.0, upload_dtype=np.float16,
+                        cap: int = 32768, ow: int = 8192, config=None,
+                        device=None, kernels=True) -> list:
+    """N same-sized images in one pair of device programs: one upload, one
+    histogram read and one section read for the whole batch; each image
+    gets its own entropy codes and codestream, byte-equal to
+    encode_image_device of that image. Every kernel launches once a
+    program, over all N*G groups. Images share one shape and one type (u8
+    sRGB or float linear). With config.optimize_code=False the whole batch
+    is one program (analysis, per-image candidate picks, section packing),
+    with no histogram read and no host code build."""
+    return DeviceEncodeJob(imgs, distance, upload_dtype, cap, ow, config=config,
+                           device=device, kernels=kernels).result()
+
+
+def encode_images_device(imgs, distance=1.0, upload_dtype=np.float16, depth=3,
+                         config=None, retries=1, device=None):
+    """Pipelined encode of an iterable of [3, H, W] images (any sizes):
+    yields each image's codestream, in input order, byte-equal to
+    encode_image_device of that image.
+
+    While the host builds image i's codes and assembles its codestream,
+    images i+1 .. i+depth-1 are uploaded and their program A runs; a queued
+    job whose program A has finished gets its program B queued at once
+    (pack_ready). retries: how often an image whose encode raised is
+    encoded again from its pixels before the error propagates (each retry
+    adds one to RETRY_COUNT). The device is resolved at the call: with
+    device=None and no card this raises before any image is read."""
+    device = resolve_device(device)
+    return _encode_pipelined(imgs, distance, upload_dtype, max(depth, 1), config,
+                             retries, device)
+
+
+def _encode_pipelined(imgs, distance, upload_dtype, depth, config, retries, device):
+    def start(img):
+        return DeviceEncodeJob([img], distance, upload_dtype, config=config, device=device)
+
+    def finish(entry):
+        global RETRY_COUNT
+        job, img, err = entry
+        for attempt in range(retries + 1):
+            try:
+                if err is not None:  # raised in pack_ready: a failed attempt
+                    raise err
+                if job is None:
+                    job = start(img)
+                job.pack()
+                return job.result()[0]
+            except Exception:  # any failure is retried from the pixels
+                if attempt == retries:
+                    raise
+                RETRY_COUNT += 1
+                job, err = None, None
+
+    def pack_ready(queue):
+        # A queued job whose program A has finished gets its codes built
+        # and program B queued now, so that the card works through B while
+        # the host assembles the image before it. An error here is kept on
+        # the entry, and finish() counts it as the job's first attempt.
+        for entry in queue:
+            job = entry[0]
+            if entry[2] is None and not job._packed and job.ready_for_pack():
+                try:
+                    job.pack()
+                except Exception as e:  # finish() retries or re-raises it
+                    entry[2] = e
+
+    queue = deque()
+    for img in imgs:
+        queue.append([start(img), img, None])
+        if len(queue) >= depth:
+            entry = queue.popleft()
+            pack_ready(queue)
+            yield finish(entry)
+    while queue:
+        entry = queue.popleft()
+        pack_ready(queue)
+        yield finish(entry)

@@ -18,14 +18,14 @@ Entries are built in int64 and stored as int32 bit patterns.
 import torch
 
 from ..common import div_ceil
+from ..constants import DC_PAD as PAD
+from ..constants import DC_RAW as RAW
 from .pack_kernels import (
-    bitpack_groups_words, compact_sections, pack_ac_sections, table_lookup,
-    u32_to_i32, uint_token_extra,
+    bitpack_groups_words, compact_sections, count_bins, pack_ac_sections,
+    table_lookup, u32_to_i32, uint_token_extra,
 )
 
 PD = 256  # DC-group plane dim in blocks (2048 px / 8)
-RAW = 0x8000
-PAD = 0xFFFF
 
 _HDR = 2
 _DCN = 3 * PD * PD
@@ -81,17 +81,19 @@ def gradient_tokens(plane, tables):
     return gradient_ctx(grad, tables), _pack_signed(p - guess)
 
 
-def regroup_dc(arr, ygr, xgr, trailing):
+def regroup_dc(arr, ygr, xgr, trailing, n_images=1):
     """[G, (C,) t, t] per-group maps -> [Gd, (C,) 8t, 8t] DC-group planes
-    (G = ygr*xgr raster groups, ygr/xgr multiples of 8)."""
+    (G = ygr*xgr raster groups, ygr/xgr multiples of 8). With n_images=N
+    the maps hold N images' groups in turn, and so does the result."""
     gy8, gx8 = ygr // 8, xgr // 8
     t = arr.shape[-1]
+    n = n_images
     if trailing:  # [G, C, t, t]
         c = arr.shape[1]
-        a = arr.reshape(gy8, 8, gx8, 8, c, t, t).permute(0, 2, 4, 1, 5, 3, 6)
-        return a.reshape(gy8 * gx8, c, 8 * t, 8 * t)
-    a = arr.reshape(gy8, 8, gx8, 8, t, t).permute(0, 2, 1, 4, 3, 5)
-    return a.reshape(gy8 * gx8, 8 * t, 8 * t)
+        a = arr.reshape(n, gy8, 8, gx8, 8, c, t, t).permute(0, 1, 3, 5, 2, 6, 4, 7)
+        return a.reshape(n * gy8 * gx8, c, 8 * t, 8 * t)
+    a = arr.reshape(n, gy8, 8, gx8, 8, t, t).permute(0, 1, 3, 2, 5, 4, 6)
+    return a.reshape(n * gy8 * gx8, 8 * t, 8 * t)
 
 
 def prev_first_scan(first_flat, values_flat, init):
@@ -123,11 +125,7 @@ def build_dc_layout(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
         w = (ctx.to(torch.int64) << 16) | (val & 0xFFFF)
         return torch.where(ok, w, PAD << 16).reshape(gd, -1)
 
-    parts = [
-        torch.tensor(
-            [((RAW | 2) << 16) | 0, ((RAW | 4) << 16) | 3], device=dev
-        ).expand(gd, 2)
-    ]
+    parts = [tables.dc_header.expand(gd, 2)]
     # DC tokens, channel order Y, X, B (enc_frame.cc:292).
     for ch in (1, 0, 2):
         ctx, val = gradient_tokens(quant_dc[:, ch], tables)
@@ -177,18 +175,23 @@ def build_dc_layout(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
     return u32_to_i32(torch.cat([layout, pad], dim=1))
 
 
-def dc_hist(layout):
-    """[Gd, DC_CAP] layout -> [64, 64] i64 histogram over DC contexts (rows
-    >= 45 stay zero; raw/pad entries excluded)."""
-    e = layout.to(torch.int64) & 0xFFFFFFFF
+def dc_hist(layout, n_images=1):
+    """[Gd, DC_CAP] layout -> [n_images, 64, 64] i64 histograms over DC
+    contexts (rows >= 45 stay zero; raw/pad entries excluded), the Gd
+    groups being n_images images' DC groups in turn. Counted in rows of
+    4096 entries (DC_CAP is a multiple of 4096), so that a frequent bin's
+    adds spread over many rows."""
+    e = layout.reshape(-1, 4096).to(torch.int64) & 0xFFFFFFFF
     tag = e >> 16
-    is_tok = tag < 45
-    tok, _, _ = uint_token_extra(e[is_tok] & 0xFFFF)
-    return torch.bincount(tag[is_tok] * 64 + tok, minlength=64 * 64).reshape(64, 64)
+    tok, _, _ = uint_token_extra(e & 0xFFFF)
+    h = count_bins(torch.clamp_max(tag, 63) * 64 + tok, tag < 45, 4096, n_images)
+    return h.reshape(n_images, 64, 64)
 
 
 def dc_token_data_bits(layout, d_table):
-    """Layout entries -> (data, nbits) int64 for the bit packer."""
+    """Layout entries -> (data, nbits) int64 for the bit packer. d_table:
+    [9, 64] f32, or [Gd, 9, 64] (one table a DC group,
+    pack_kernels.table_lookup)."""
     e = layout.to(torch.int64) & 0xFFFFFFFF
     tag = e >> 16
     value = e & 0xFFFF
@@ -222,13 +225,45 @@ def pack_dc_sections(layout, d_table, ow, wcap, compact=True, kernels=True):
     return dict(words=words, bits=bits, word_offs=offs)
 
 
-def pack_all_sections(stream, totals, d_ac, layout, d_dc, ow_ac, wcap_ac,
-                      ow_dc, wcap_dc, compact_ac=True, compact_dc=True,
-                      kernels=True):
-    """Program B: AC + DC section packing. `small` holds the four small
-    vectors [ac_bits, ac_offs, dc_bits, dc_offs] for one device->host copy."""
-    ac = pack_ac_sections(stream, totals, d_ac, ow_ac, wcap_ac, compact_ac, kernels)
-    dc = pack_dc_sections(layout, d_dc, ow_dc, wcap_dc, compact_dc, kernels)
+def select_code_table(hist64, depths_k):
+    """Pick the cheapest candidate code table on the device.
+
+    hist64: [64, 64] i64 token histogram, or [N, 64, 64] (one pick an
+    image); depths_k: [K, 64, 64] i32 per-candidate (ctx, token) ->
+    emission depth grids. The cost is an exact int64 sum (the JAX package
+    splits it into two int32 partial sums to the same end), so the argmin
+    is deterministic; ties go to the lowest index. Returns a 0-d (or [N])
+    int64 tensor."""
+    cost = (hist64.to(torch.int64)[..., None, :, :] * depths_k.to(torch.int64)).sum(
+        dim=(-2, -1)
+    )
+    return torch.argmin(cost, dim=-1)  # the first minimum, as jnp.argmin
+
+
+def per_group_tables(d, groups_per_image):
+    """[N, 9, 64] per-image code tables -> [N * groups_per_image, 9, 64],
+    each image's table repeated for its groups (expand, not
+    repeat_interleave, whose output size may be read on the host)."""
+    n = d.shape[0]
+    return d[:, None].expand(n, groups_per_image, *d.shape[1:]).reshape(
+        n * groups_per_image, *d.shape[1:]
+    )
+
+
+def pack_batch_sections(stream, totals, d_ac, layout, d_dc, ow_ac, wcap_ac,
+                        ow_dc, wcap_dc, compact_ac=True, compact_dc=True,
+                        kernels=True):
+    """Program B: the AC and DC sections of N images (one image: N = 1) in
+    one pass over their N*G groups and N*Gd DC groups. d_ac / d_dc:
+    per-image factored tables [N, 9, 64]; stream holds N*G groups, layout
+    N*Gd DC groups, each image's in turn. All sections land in the two
+    shared word buffers; `small` holds the four small vectors [ac_bits,
+    ac_offs, dc_bits, dc_offs] for one device->host copy."""
+    n = d_ac.shape[0]
+    ac = pack_ac_sections(stream, totals, per_group_tables(d_ac, stream.shape[0] // n),
+                          ow_ac, wcap_ac, compact_ac, kernels)
+    dc = pack_dc_sections(layout, per_group_tables(d_dc, layout.shape[0] // n),
+                          ow_dc, wcap_dc, compact_dc, kernels)
     return dict(
         ac_words=ac["words"], ac_bits=ac["bits"], ac_offs=ac["word_offs"],
         dc_words=dc["words"], dc_bits=dc["bits"], dc_offs=dc["word_offs"],
@@ -236,44 +271,33 @@ def pack_all_sections(stream, totals, d_ac, layout, d_dc, ow_ac, wcap_ac,
     )
 
 
-def select_code_table(hist64, depths_k):
-    """Pick the cheapest candidate code table on the device.
+def analyze_pack_batch_static(images, yb_valid, xb_valid, d_ac, d_dc,
+                              ac_depths, dc_depths, distp, cap, tables, cfl,
+                              blocks, ow_ac, wcap_ac, ow_dc, wcap_dc,
+                              compact_ac=True, compact_dc=True, kernels=True):
+    """One-pass tier: analysis + section packing of N same-sized images
+    (one image: N = 1) with static code tables, with no histogram round
+    trip to the host in between (the reference's OPTIMIZE_CODE=0 design).
+    d_ac / d_dc hold K candidate tables [K, 9, 64] each; the device picks
+    each image's cheapest from its own histograms (select_code_table) and
+    reports the picks at the end of `small`, so that the host serializes
+    the same tables into ACGlobal / DCGlobal. `small` layout: [ac_bits,
+    ac_offs, dc_bits, dc_offs, totals, k_ac[N], k_dc[N]]."""
+    from .pipeline import analyze_batch_packed
 
-    hist64: [64, 64] i64 token histogram; depths_k: [K, 64, 64] i32
-    per-candidate (ctx, token) -> emission depth grids. The cost is an
-    exact int64 sum (the JAX package splits it into two int32 partial sums
-    to the same end), so the argmin is deterministic; ties go to the lowest
-    index. Returns a 0-d int64 tensor."""
-    cost = (hist64.to(torch.int64)[None] * depths_k.to(torch.int64)).sum(dim=(1, 2))
-    return torch.argmin(cost)  # the first minimum, as jnp.argmin
-
-
-def analyze_pack_static(image, yb_valid, xb_valid, d_ac, d_dc, ac_depths,
-                        dc_depths, distp, cap, tables, cfl, blocks, ow_ac,
-                        wcap_ac, ow_dc, wcap_dc, compact_ac=True,
-                        compact_dc=True, kernels=True):
-    """One-pass tier: analysis + section packing with static code tables,
-    with no histogram round trip to the host in between (the reference's
-    OPTIMIZE_CODE=0 design). d_ac / d_dc hold K candidate tables [K, 9, 64]
-    each; the device picks the cheapest per image from the histograms it
-    already computes (select_code_table) and reports the picks as the last
-    two elements of `small` ([..., totals, k_ac, k_dc]), so that the host
-    serializes the same tables into ACGlobal / DCGlobal."""
-    from .pipeline import analyze_image_packed
-
-    a = analyze_image_packed(
-        image, yb_valid, xb_valid, distp, cap, tables, cfl, blocks, kernels
+    a = analyze_batch_packed(
+        images, yb_valid, xb_valid, distp, cap, tables, cfl, blocks, kernels
     )
-    k_ac = select_code_table(a["hists"][0], ac_depths)
-    k_dc = select_code_table(a["hists"][1], dc_depths)
-    b = pack_all_sections(
-        a["stream"][:, :cap].contiguous(), a["totals"], d_ac[k_ac],
-        a["dc_layout"], d_dc[k_dc], ow_ac=ow_ac, wcap_ac=wcap_ac, ow_dc=ow_dc,
-        wcap_dc=wcap_dc, compact_ac=compact_ac, compact_dc=compact_dc,
-        kernels=kernels,
+    k_ac = select_code_table(a["hists"][:, 0], ac_depths)
+    k_dc = select_code_table(a["hists"][:, 1], dc_depths)
+    b = pack_batch_sections(
+        a["stream"][:, :cap].contiguous(), a["totals"], d_ac.index_select(0, k_ac),
+        a["dc_layout"], d_dc.index_select(0, k_dc), ow_ac=ow_ac,
+        wcap_ac=wcap_ac, ow_dc=ow_dc, wcap_dc=wcap_dc, compact_ac=compact_ac,
+        compact_dc=compact_dc, kernels=kernels,
     )
     b["totals"] = a["totals"]
-    b["small"] = torch.cat([b["small"], a["totals"], k_ac[None], k_dc[None]])
+    b["small"] = torch.cat([b["small"], a["totals"], k_ac, k_dc])
     return b
 
 

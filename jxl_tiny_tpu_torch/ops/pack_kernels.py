@@ -14,10 +14,11 @@ encode keeps `bitpack_groups_words`), its tests and chip_smoke.py do.
 Word types: token words (`ctx << 16 | value`, < 2^22) and section words
 travel as int32 tensors; section words are 32-bit patterns, so the bit
 arithmetic runs in int64 and `u32_to_i32` stores the pattern. The TPU's
-one-hot matmul lookups and histograms become integer indexing and
-bincount, and its row-merge and log-shift left-pack preconditioners for
-the placement kernel are not needed: the CUDA kernel finds each output
-position's row in the prefix sum and gathers its token.
+one-hot matmul lookups and histograms become integer indexing and a
+scatter_add_ with a spare bin (no host sync), and its row-merge and
+log-shift left-pack preconditioners for the placement kernel are not
+needed: the CUDA kernel finds each output position's row in the prefix sum
+and gathers its token.
 """
 import numpy as np
 import torch
@@ -162,27 +163,54 @@ def uint_token_extra(value):
     return tok, nbits, extra
 
 
-def hist_base64(stream, totals):
-    """[G, cap] token stream -> [64, 64] i64 counts of (base ctx, token)
-    over each group's first `totals` slots."""
+def count_bins(bins, valid, n_bins, n_images=1):
+    """Exact integer histograms without a host sync. bins: [R, T] int64 in
+    [0, n_bins), counted where `valid`; the R rows are n_images images'
+    rows in turn. Returns [n_images, n_bins] int64.
+
+    Each row is counted into a row of its own (a scatter_add_ into [R,
+    n_bins + 1], invalid slots into the spare last bin, which is dropped),
+    so that the atomic adds of a frequent bin spread over R addresses; the
+    rows of an image are then summed. The output size never depends on the
+    data (a boolean gather or torch.bincount would read a size back to the
+    host). Integer sums: exact and the same in any order."""
+    r = bins.shape[0]
+    idx = torch.where(valid, bins, n_bins)
+    out = torch.zeros((r, n_bins + 1), dtype=torch.int64, device=bins.device)
+    out.scatter_add_(1, idx, torch.ones_like(idx))
+    return out[:, :n_bins].reshape(n_images, r // n_images, n_bins).sum(dim=1)
+
+
+def hist_base64(stream, totals, n_images=1):
+    """[G, cap] token stream -> [n_images, 64, 64] i64 counts of (base ctx,
+    token) over each group's first `totals` slots: one histogram an image,
+    the G groups being n_images images' groups in turn."""
     g, cap = stream.shape
     valid = torch.arange(cap, device=stream.device)[None, :] < totals[:, None]
-    s = stream.to(torch.int64)[valid]
+    s = stream.to(torch.int64)
     base = (s >> 16) & 63
     tok, _, _ = uint_token_extra(s & 0xFFFF)
-    return torch.bincount(base * 64 + tok, minlength=64 * 64).reshape(64, 64)
+    return count_bins(base * 64 + tok, valid, 4096, n_images).reshape(n_images, 64, 64)
 
 
 def table_lookup(base, tok, d_table):
     """Factored code table lookup: d_table [9, 64] f32 (row 0: base ctx ->
     cluster; rows 1..8: per-cluster depth << 16 | code bits, exact in f32)
-    -> depth << 16 | bits per token (int64)."""
+    -> depth << 16 | bits per token (int64). base/tok: [G, T]. d_table may
+    also be [G, 9, 64], one table a group (the batch's per-image codes):
+    the lookup then gathers along the group index too (the contract of the
+    JAX package's table_lookup_packed, whose one-hot products were a TPU
+    workaround)."""
     d = d_table.to(torch.int64)
-    return d[1:][d[0][base], tok]
+    if d.dim() == 2:
+        return d[1:][d[0][base], tok]
+    gi = torch.arange(d.shape[0], device=d.device)[:, None]
+    return d[gi, 1 + d[gi, 0, base], tok]
 
 
 def token_data_bits(stream, totals, d_table):
-    """stream: [G, cap] i32 (base64 << 16 | value); d_table: [9, 64] f32.
+    """stream: [G, cap] i32 (base64 << 16 | value); d_table: [9, 64] f32,
+    or [G, 9, 64] (one table a group, see table_lookup).
 
     Returns (data [G, cap] i64, nbits [G, cap] i64): each token's LSB-first
     bit pattern (code bits, then the hybrid-uint extra bits) and length;

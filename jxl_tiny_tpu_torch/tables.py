@@ -6,7 +6,14 @@ orders, context tables, the DCT matrix and the DCT16 half matrices, the
 strategy search's quant weights, the DC gradient-context steps).
 `numpy_tables()` builds them from the port's own constants; the tests build
 the same dict from the JAX package's module attributes and compare.
+
+`device_tables(device)` builds them once a device and shares them across
+jobs. Every upload here (`to_device`) goes through pinned memory with
+`non_blocking=True`, so building tables on the card never waits for work
+already queued there.
 """
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -128,6 +135,18 @@ def numpy_tables() -> dict:
     )
 
 
+def to_device(t, device) -> torch.Tensor:
+    """Host tensor or array -> tensor on `device`. For the card the copy is
+    queued from pinned memory with non_blocking=True: it neither waits for
+    the work already queued nor lets the host buffer be reused before the
+    copy has run (the pinned allocator records the copy's stream)."""
+    t = torch.as_tensor(t)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class EncoderTables(nn.Module):
     """Constant tables as buffers, on one device. Plain host ints that the
     stages need before any launch are kept as attributes, so reading them
@@ -137,6 +156,8 @@ class EncoderTables(nn.Module):
         super().__init__()
         for name, arr in arrays.items():
             self.register_buffer(name, torch.from_numpy(np.array(arr)))
+        # The two raw header entries that open every DC-section layout.
+        self.register_buffer("dc_header", torch.tensor(C.DC_HEADER, dtype=torch.int64))
         # Derived from the arrays given, so that they can never disagree.
         zz, self.dc_pos = zigzag_tables(
             arrays["qm_tab"], arrays["dqm_tab"], arrays["thr_tab"], arrays["order_tab"]
@@ -156,4 +177,26 @@ class EncoderTables(nn.Module):
 
 
 def tables_from_numpy(arrays: dict, device) -> EncoderTables:
-    return EncoderTables(arrays).to(device)
+    tables = EncoderTables(arrays)
+    for name, buf in list(tables.named_buffers()):
+        setattr(tables, name, to_device(buf, device))
+    return tables
+
+
+def canonical_device(device) -> torch.device:
+    """`cuda` -> `cuda:<current index>`, so that caches keyed by device
+    see one key a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device) -> EncoderTables:
+    return tables_from_numpy(numpy_tables(), device)
+
+
+def device_tables(device) -> EncoderTables:
+    """The encoder's tables on `device`, built once and shared (read-only)."""
+    return _device_tables(canonical_device(device))

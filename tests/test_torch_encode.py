@@ -103,14 +103,35 @@ def _jax_program_a(img, cap, blocks=False):
 
 
 def _as_port(out):
-    """JAX program A outputs -> the port's tensor types."""
+    """JAX program A outputs of one image -> the port's program A outputs
+    (a batch of one: hists [1, 2, 64, 64])."""
     return dict(
         stream=torch.from_numpy(out["stream"].view(np.int32).copy()),
         totals=torch.from_numpy(out["totals"].astype(np.int64)),
-        hists=torch.from_numpy(out["hists"].astype(np.int64)),
+        hists=torch.from_numpy(out["hists"].astype(np.int64))[None],
         dc_layout=torch.from_numpy(out["dc_layout"].view(np.int32).copy()),
-        meta=torch.from_numpy(out["meta"].copy()),
     )
+
+
+def _port_program_a(img, monkeypatch, config=None):
+    """The port's program A as its job runs it on one image, with hists
+    [2, 64, 64] and, under "meta", the per-group maps that its DC layout
+    is built from, packed by the JAX package's meta packer (the port's
+    program A has no meta output of its own)."""
+    maps = []
+    real = PL.dc_layout_from_maps
+
+    def spy(*args, **kwargs):
+        maps.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(PL, "dc_layout_from_maps", spy)
+    job = TE.DeviceEncodeJob([img], 1.0, upload_dtype=None, config=config, device="cpu")
+    monkeypatch.undo()
+    (m,) = maps
+    meta = PJ._pack_meta_u8(*(jnp.asarray(a.numpy()) for a in m))
+    return dict(job.out_a, hists=job.out_a["hists"][0],
+                meta=torch.from_numpy(np.array(meta)))
 
 
 def _ref_cache(testdata, jcfg, blocks):
@@ -151,11 +172,11 @@ def _assert_program_a_equal(got, want, name):
 
 
 @pytest.mark.parametrize("name", IMAGES)
-def test_program_a_matches_jax(ref, name):
-    """(a) Program A on the port's CPU path: every output key equal."""
+def test_program_a_matches_jax(ref, name, monkeypatch):
+    """(a) Program A on the port's CPU path: every output key equal (meta:
+    the per-group maps the DC layout is built from)."""
     img, _, want = ref(name)
-    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
-    _assert_program_a_equal(job.out_a, want, name)
+    _assert_program_a_equal(_port_program_a(img, monkeypatch, CFG), want, name)
 
 
 def _strategy_maps(meta):
@@ -165,18 +186,18 @@ def _strategy_maps(meta):
 
 
 @pytest.mark.parametrize("name", IMAGES)
-def test_program_a_default_matches_jax(ref_default, name):
+def test_program_a_default_matches_jax(ref_default, name, monkeypatch):
     """(a) at the default configuration. The strategy maps are compared
     first, quad by quad, so that a flipped decision is named as such
     before the streams that follow from it."""
     img, _, want = ref_default(name)
-    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu")
-    strat, first = _strategy_maps(job.out_a["meta"].numpy())
+    got = _port_program_a(img, monkeypatch)
+    strat, first = _strategy_maps(got["meta"].numpy())
     jstrat, jfirst = _strategy_maps(want["meta"])
     flipped = np.argwhere((strat != jstrat) | (first != jfirst))
     assert flipped.size == 0, f"{name}: flipped cells (group, by, bx) {flipped[:8]}"
     assert (strat != 0).any(), "the search chose no 16x8 / 8x16 transform"
-    _assert_program_a_equal(job.out_a, want, name)
+    _assert_program_a_equal(got, want, name)
 
 
 @pytest.mark.parametrize("name", IMAGES)
@@ -188,13 +209,13 @@ def test_program_b_and_assembly_byte_identical(ref, name, monkeypatch):
         assert len(want) == JAX_SIZES[name]
     calls = []
 
-    def jax_program_a(image, yb, xb, distp, cap, tables, cfl=True, blocks=True,
+    def jax_program_a(images, yb, xb, distp, cap, tables, cfl=True, blocks=True,
                       kernels=True):
-        assert not blocks
+        assert not blocks and images.shape[0] == 1
         calls.append(cap)
-        return _as_port(_jax_program_a(image.numpy(), cap))
+        return _as_port(_jax_program_a(images[0].numpy(), cap))
 
-    monkeypatch.setattr(TE, "analyze_image_packed", jax_program_a)
+    monkeypatch.setattr(TE, "analyze_batch_packed", jax_program_a)
     got = TE.encode_image_device(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
     assert calls == [32768]
     assert got == want
@@ -208,12 +229,12 @@ def test_program_b_default_byte_identical(ref_default, name, monkeypatch):
     if name in JAX_SIZES_DEFAULT:
         assert len(want) == JAX_SIZES_DEFAULT[name]
 
-    def jax_program_a(image, yb, xb, distp, cap, tables, cfl=True, blocks=True,
+    def jax_program_a(images, yb, xb, distp, cap, tables, cfl=True, blocks=True,
                       kernels=True):
-        assert blocks and cap == 32768
-        return _as_port(_jax_program_a(image.numpy(), cap, blocks=True))
+        assert blocks and cap == 32768 and images.shape[0] == 1
+        return _as_port(_jax_program_a(images[0].numpy(), cap, blocks=True))
 
-    monkeypatch.setattr(TE, "analyze_image_packed", jax_program_a)
+    monkeypatch.setattr(TE, "analyze_batch_packed", jax_program_a)
     assert TE.encode_image_device(img, 1.0, upload_dtype=None, device="cpu") == want
 
 
@@ -289,11 +310,12 @@ def test_xyb_dct_cmap_match_jax(testdata):
     jxyb = np.asarray(PJ.to_xyb(jnp.asarray(groups.numpy())))
     np.testing.assert_allclose(xyb.numpy(), jxyb, rtol=1e-5, atol=1e-6)
     blocks = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
-    coef = dct2d_8x8(blocks, tables_from_numpy(numpy_tables(), "cpu").dct8)
+    tables = tables_from_numpy(numpy_tables(), "cpu")
+    coef = dct2d_8x8(blocks, tables.dct8)
     jcoef = np.asarray(jax_dct2d(jnp.asarray(blocks.numpy()), 8, 8))
     np.testing.assert_allclose(coef.numpy(), jcoef, rtol=1e-5, atol=1e-6)
     valid = torch.ones((g, 32, 32), dtype=torch.bool)
-    for got, want in zip(PL.compute_cmap(coef, valid),
+    for got, want in zip(PL.compute_cmap(coef, valid, tables),
                          PJ.compute_cmap(jnp.asarray(jcoef), jnp.asarray(valid.numpy()))):
         assert np.array_equal(got.numpy(), np.asarray(want))
 
@@ -337,21 +359,21 @@ def test_static_candidate_selection_matches_host(testdata, name):
     from jxl_tiny_tpu_torch.entropy.entropy_write import load_static_codes
 
     img = _load(testdata, name)
-    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu",
+    job = TE.DeviceEncodeJob([img], 1.0, upload_dtype=None, device="cpu",
                              config=EncoderConfig(optimize_code=False))
-    data = job.result()
+    (data,) = job.result()
     small = job._small_sync()
     k_ac, k_dc = int(small[-2]), int(small[-1])
-    two = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, device="cpu")
-    hists = two.out_a["hists"].numpy()
+    two = TE.DeviceEncodeJob([img], 1.0, upload_dtype=None, device="cpu")
+    hists = two.out_a["hists"].numpy()[0]
     sc = load_static_codes()
     for k_dev, hist, depths in ((k_ac, hists[0], sc.ac_depths), (k_dc, hists[1], sc.dc_depths)):
         costs = (hist[None] * depths.astype(np.int64)).sum(axis=(1, 2))
         assert k_dev == int(np.argmin(costs)), (k_dev, costs)
     assert len(sc.ac_codes) > 1 and len(sc.dc_codes) > 1
-    assert job.full_code is sc.ac_codes[k_ac] and job.dc_code is sc.dc_codes[k_dc]
+    assert job.full_codes[0] is sc.ac_codes[k_ac] and job.dc_codes[0] is sc.dc_codes[k_dc]
     assert np.array_equal(small[-2 - len(two.out_a["totals"]):-2], two.out_a["totals"].numpy())
-    two_pass = two.result()
+    (two_pass,) = two.result()
     assert len(two_pass) < len(data) < 1.25 * len(two_pass)
     assert decode_jxl(data) is not None
 
@@ -362,8 +384,8 @@ def test_static_tier_cap_retry(testdata):
     img = _load(testdata, "photo256")
     cfg = EncoderConfig(optimize_code=False)
     want = TE.encode_image_device(img, 1.0, upload_dtype=None, config=cfg, device="cpu")
-    job = TE.DeviceEncodeJob(img, 1.0, upload_dtype=None, cap=1024, config=cfg, device="cpu")
-    assert job.result() == want and job.cap == 32768
+    job = TE.DeviceEncodeJob([img], 1.0, upload_dtype=None, cap=1024, config=cfg, device="cpu")
+    assert job.result() == [want] and job.cap == 32768
 
 
 def test_cli(testdata, tmp_path):
