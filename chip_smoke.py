@@ -51,6 +51,17 @@ Phases (any failure exits non-zero at once):
               (copy_sections past its 512 groups of shared-memory offsets),
               every kernel call held against its plain version and timed at
               the batch's shapes
+  6. mesh     the multi-GPU path (jxl_tiny_tpu_torch/parallel/), ranks as
+              spawned processes: NCCL with one rank a card over every card
+              (photo8mp in both tiers and with the owner DC exchange, equal
+              to the single encodes; both tiers queued with no host sync;
+              walls against encode_image_device; each collective's device
+              time and bytes; eight 1024x1024 crops through
+              encode_batch_device(mesh=) against the one-card batch); then 2
+              and 4 ranks sharing card 0 over gloo (both tiers and the owner
+              exchange, equal bytes; at 4 ranks every kernel call of rank 0
+              and of rank 3, whose 34 groups hold the padding group, held
+              against its plain version and timed at its shard-local shape)
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -92,25 +103,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps, warm=2):
-    """Device time of one call: CUDA events around `reps` calls queued behind
-    a spin kernel (~1.5 ms), so that the host's call overhead, which is more
-    than the smallest kernels take, stays out of the time."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(3_000_000)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def profiled(fn):
     """Run fn under torch.profiler; returns (wall ms, device-busy ms, the
     six kernels with the most device time as (name, ms, calls)), or None
@@ -142,36 +134,13 @@ def bound(nbytes, nops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def max_abs_err(a, b):
-    import torch
-
-    if a.dtype.is_floating_point:
-        d = (a.double() - b.double()).abs()
-        return float(torch.nan_to_num(d, nan=float("inf")).max())
-    return float((a.long() - b.long()).abs().max())
-
-
 def compare(name, outs_k, outs_p, nan_ok=False):
-    """Exact equality of kernel and plain outputs (bitwise for floats; with
-    nan_ok a NaN equals any NaN, whatever its payload)."""
-    import torch
+    """Exact equality of kernel and plain outputs (tools/kernel_check.compare:
+    bitwise for floats; with nan_ok a NaN equals any NaN, whatever its
+    payload); exits on a mismatch."""
+    from jxl_tiny_tpu_torch.tools import kernel_check as KC
 
-    err, bad, nans = 0.0, 0, 0
-    for k, p in zip(outs_k, outs_p):
-        if k.shape != p.shape or k.dtype != p.dtype:
-            fail(f"{name}: kernel output {k.dtype}{tuple(k.shape)} vs plain "
-                 f"{p.dtype}{tuple(p.shape)}")
-        if k.dtype.is_floating_point:
-            same = k.view(torch.int32) == p.view(torch.int32)
-            if nan_ok:
-                both = torch.isnan(k) & torch.isnan(p)
-                nans += int(both.sum())
-                same = same | both
-                k, p = torch.where(both, 0.0, k), torch.where(both, 0.0, p)
-        else:
-            same = k == p
-        bad += int((~same).sum())
-        err = max(err, max_abs_err(k, p))
+    bad, err, nans = KC.compare(outs_k, outs_p, nan_ok)
     log(f"  {name}: mismatches {bad}, max_abs_err {err}"
         + (f", NaN in both at {nans} elements" if nan_ok else ""))
     if nan_ok and not nans:
@@ -234,6 +203,8 @@ def main():
     from jxl_tiny_tpu_torch.ops.dct import dct2d_8x8
     from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
     from jxl_tiny_tpu_torch.tools import bench_strategy_bitpack as BS
+    from jxl_tiny_tpu_torch.tools import kernel_check as KC
+    from jxl_tiny_tpu_torch.tools.kernel_check import cuda_time_ms
 
     dev = torch.device("cuda")
     tables = tables_from_numpy(numpy_tables(), dev)
@@ -662,11 +633,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 4. the 8 MP encode through the public entry point ------------------
-    wrappers = {
-        "aq_field": AQ.aq_field, "estimate_partials": SK.estimate_partials,
-        "quantize_cells": QK.quantize_cells, "tokenize_rows": TK.tokenize_rows,
-        "compact_rows": PK.compact_rows, "copy_sections": PK.copy_sections,
-    }
+    wrappers, _ = KC.on_path_kernels()
 
     def reset_counts():
         for wr in (*wrappers.values(), PK.bitpack_groups_var):
@@ -827,29 +794,10 @@ def main():
     del job
     torch.cuda.synchronize()
 
-    def count_programs(names):
-        """Wrap the encoder's program functions to count their runs."""
-        runs = {n: 0 for n in names}
-        real = {n: getattr(TE, n) for n in names}
-
-        def wrap(n):
-            def run(*args, **kwargs):
-                runs[n] += 1
-                return real[n](*args, **kwargs)
-            return run
-
-        for n in names:
-            setattr(TE, n, wrap(n))
-        return runs, lambda: [setattr(TE, n, f) for n, f in real.items()]
-
     def expect_launches(label, launches, a_runs, b_runs):
-        """Each kernel once a program: the four program A kernels once an A,
-        compact_rows once an A (tokens) and twice a B (AC and DC words),
-        copy_sections twice a B (both buffers compacted)."""
-        want = {"aq_field": a_runs, "estimate_partials": a_runs, "quantize_cells": a_runs,
-                "tokenize_rows": a_runs, "compact_rows": a_runs + 2 * b_runs,
-                "copy_sections": 2 * b_runs}
-        if launches != want:
+        """Each kernel once a program (kernel_check.expected_launches)."""
+        want = KC.expected_launches(a_runs, b_runs)
+        if not a_runs or launches != want:
             fail(f"{label}: launches {launches} are not once a program ({a_runs} A, "
                  f"{b_runs} B: {want})")
 
@@ -902,51 +850,20 @@ def main():
         f"{json.dumps(pipe_launches)} [{card}]")
 
     # Every kernel call of a batch, held against its plain version on the
-    # same inputs (exact): the calls are recorded on a run of their own, and
-    # the comparison launches come after the run's launch counts are read.
-    plain_of = {
-        "aq_field": lambda xyb_, d: AQ.aq_field_plain(xyb_, *AQ.aq_constants(d)),
-        "estimate_partials": SK.estimate_partials_plain,
-        "quantize_cells": QK.quantize_cells_plain,
-        "tokenize_rows": lambda x_, meta_, t: TK.tokenize_rows_plain(
-            x_, meta_, t.freq_tab, t.nnz_thresh0),
-        "compact_rows": PK.compact_rows_plain,
-        "copy_sections": PK.copy_sections_plain,
-    }
-
-    def recorded(fn):
-        """fn() with every kernel wrapper's arguments recorded, call by
-        call: returns (fn's result, {kernel: [args, ...]})."""
-        calls = {name: [] for name in wrappers}
-        real = {}
-        for name, wr in wrappers.items():
-            cls = type(wr)
-            real[cls] = cls.__call__
-
-            def recording_call(self, *args, _name=name, _real=cls.__call__):
-                calls[_name].append(args)
-                return _real(self, *args)
-
-            cls.__call__ = recording_call
-        try:
-            return fn(), calls
-        finally:
-            for cls, f in real.items():
-                cls.__call__ = f
-
-    def hold_calls(label, calls):
+    # same inputs (exact): the calls are recorded on a run of their own
+    # (tools/kernel_check.recorded), and the comparison launches come
+    # after the run's launch counts are read.
+    def hold_calls(label, calls, time_ms=None):
         """Each recorded call's kernel output against its plain version;
-        exits on any mismatch. Returns {kernel: max_abs_err}."""
-        errs = {}
-        for name, arg_list in calls.items():
-            for i, args in enumerate(arg_list):
-                outs = [wrappers[name](*args), plain_of[name](*args)]
-                outs = [list(o) if isinstance(o, tuple) else [o] for o in outs]
-                err = compare(f"{name} ({label}, call {i + 1} of {len(arg_list)}, "
-                              f"{list(args[0].shape)})", *outs)
-                errs[name] = max(errs.get(name, 0.0), err)
-                del outs
-        return errs
+        exits on any mismatch. Returns KC.hold_calls' record."""
+        held = KC.hold_calls(calls, time_ms)
+        for name, h_ in held.items():
+            log(f"  {name} ({label}): {h_['calls']} calls at {h_['shapes']}: mismatches "
+                f"{h_['mismatches']}, max_abs_err {h_['max_abs_err']}")
+            if h_["mismatches"]:
+                fail(f"{name} ({label}): kernel disagrees with its plain version in "
+                     f"{h_['mismatches']} elements")
+        return held
 
     # (c) Batched: eight 1024x1024 crops, float and u8 sRGB, both tiers.
     crops = [np.ascontiguousarray(img8[:, y:y + 1024, x:x + 1024])
@@ -960,7 +877,7 @@ def main():
         singles, t_single = timed(lambda: [encode_image_device(c, DIST, config=config)
                                            for c in batch])
         TE.encode_batch_device(batch, DIST, config=config)  # warm
-        runs, restore = count_programs(progs)
+        runs, restore = KC.count_programs(TE, progs)
         reset_counts()
         try:
             got, t_batch = timed(lambda: TE.encode_batch_device(batch, DIST, config=config))
@@ -973,10 +890,12 @@ def main():
         a_runs = runs["analyze_pack_batch_static"] if static else runs["analyze_batch_packed"]
         b_runs = runs["analyze_pack_batch_static"] if static else runs["pack_batch_sections"]
         expect_launches(f"encode_batch_device ({label})", launches, a_runs, b_runs)
-        got_r, calls = recorded(lambda: TE.encode_batch_device(batch, DIST, config=config))
+        got_r, calls, _ = KC.recorded(
+            lambda: TE.encode_batch_device(batch, DIST, config=config))
         if got_r != singles:
             fail(f"encode_batch_device ({label}, recorded): bytes differ")
-        errs = hold_calls(f"8 crops, {label}", calls)
+        errs = {k: h_["max_abs_err"]
+                for k, h_ in hold_calls(f"8 crops, {label}", calls).items()}
         del calls
         if TE.encode_batch_device(batch, DIST, config=config, kernels=False) != singles:
             fail(f"encode_batch_device ({label}): the plain versions' batch encode differs")
@@ -998,10 +917,10 @@ def main():
     big, t_big = timed(lambda: TE.encode_batch_device(imgs4, DIST, config=cfg))
     if big != serial:
         fail("encode_batch_device (4 x 8 MP, 540 groups): bytes differ from the serial encodes")
-    runs, restore = count_programs(progs)
+    runs, restore = KC.count_programs(TE, progs)
     reset_counts()
     try:
-        big, calls = recorded(lambda: TE.encode_batch_device(imgs4, DIST, config=cfg))
+        big, calls, _ = KC.recorded(lambda: TE.encode_batch_device(imgs4, DIST, config=cfg))
     finally:
         restore()
     launches = {k: wr.launches for k, wr in wrappers.items()}
@@ -1013,11 +932,11 @@ def main():
     sec_groups = [a[0].shape[0] for a in calls["copy_sections"]]
     if n_groups != 540 or max(sec_groups) <= 512:
         fail(f"the 8 MP batch ran {n_groups} groups, copy_sections at {sec_groups}")
-    errs = hold_calls("photo8mp x4, 540 groups", calls)
+    held = hold_calls("photo8mp x4, 540 groups", calls, lambda fn: cuda_time_ms(fn, 5))
+    errs = {name: h_["max_abs_err"] for name, h_ in held.items()}
     for name, err in errs.items():
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-    batch_ms = {name: sum(cuda_time_ms(lambda a=a, wr=wrappers[name]: wr(*a), 5)
-                          for a in args) for name, args in calls.items()}
+    batch_ms = {name: sum(h_["ms"]) for name, h_ in held.items()}
     del calls
     torch.cuda.empty_cache()
     log(f"multi-image: batch of photo8mp x4 ({mp4:.2f} MP, {n_groups} groups; "
@@ -1029,6 +948,117 @@ def main():
     log(f"kernels at the 540-group batch's shapes (CUDA events, ms of one batch's "
         f"launches of each kernel): {json.dumps({k: round(v, 4) for k, v in batch_ms.items()})}"
         f" [{card}]")
+
+    # -- 6. mesh: the multi-GPU path (jxl_tiny_tpu_torch/parallel/) ----------
+    # Ranks are spawned processes (tools/multihost_dryrun.launch: kernels
+    # built before, 60 s group timeout, a deadline a launch; a rank that
+    # raises ends the launch and fails the run).
+    import tempfile
+
+    from jxl_tiny_tpu_torch.tools import multihost_dryrun as MD
+
+    del big, serial, imgs4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    photo = ("pfm", os.path.join(HERE, "testdata", "photo8mp.pfm"), None, False)
+    want = {"default": data_k, "static": data_st, "owner": data_k}
+
+    def read_bins(d, names):
+        out = {}
+        for name in names:
+            with open(os.path.join(d, f"{name}.bin"), "rb") as f:
+                out[name] = f.read()
+        return out
+
+    def mesh_launches(label, rep_):
+        """The launches of one mesh encode in a rank (counts set to 0 just
+        before it, read just after) against the mesh programs it ran: each
+        kernel once a program, the one-pass static program an A and a B."""
+        runs = rep_["programs"]
+        static = runs["analyze_pack_static_mesh"]
+        expect_launches(f"{label}, programs {json.dumps(runs)}", rep_["launches"],
+                        runs["analyze_image_packed_mesh"] + static,
+                        runs["pack_all_sections_mesh"] + static)
+
+    # (a) NCCL, one rank a card, over every card the machine has.
+    n_gpu = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        MD.launch(n_gpu, MD.card_mesh_rank,
+                  (photo, [(y, y + 1024, x, x + 1024) for y in (0, 1024)
+                           for x in (0, 1024, 2048, 2816)], d),
+                  device="cuda", backend="nccl", timeout_s=400)
+        t_nccl = time.time() - t0
+        got = read_bins(d, ("default", "static", "owner", "sync_default", "sync_static"))
+        with open(os.path.join(d, "card.json")) as f:
+            card_rep = json.load(f)
+    for name, data in got.items():
+        if data != want[name.replace("sync_", "")]:
+            fail(f"mesh (NCCL, {n_gpu} rank(s)): {name} encode {len(data)} B differs from the "
+                 f"single-card encode")
+    mesh_launches(f"mesh (NCCL, {n_gpu} rank(s))", card_rep)
+    for name in ("default", "static"):
+        if not card_rep[f"batch_{name}"]["equal"]:
+            fail(f"mesh (NCCL): the batch of 8 crops ({name}) differs from the one-card batch")
+    wm = card_rep["wall_median_s"]
+    log(f"mesh: NCCL over {n_gpu} card(s), world size {n_gpu}, one rank a card: photo8mp "
+        f"(f16 ingest) default {len(got['default'])} B, static {len(got['static'])} B, owner "
+        f"exchange {len(got['owner'])} B, all equal to encode_image_device; both tiers queued "
+        f"(DeviceEncodeJob.__init__, _dispatch_b) with no host sync under sync debug mode "
+        f"'error', bytes equal; 8 crops 1024x1024 through encode_batch_device(mesh=) equal "
+        f"to the one-card batch (default {sum(card_rep['batch_default']['bytes'])} B, static "
+        f"{sum(card_rep['batch_static']['bytes'])} B); launches of the default mesh encode "
+        f"on rank 0 {json.dumps(card_rep['launches'])}, programs "
+        f"{json.dumps(card_rep['programs'])}; launch {t_nccl:.1f} s [{card}]")
+    log(f"mesh: world size {n_gpu} photo8mp walls (rank 0, host clock, 3 each): mesh "
+        f"{[round(x * 1e3, 1) for x in card_rep['walls_s']['mesh']]} ms, median "
+        f"{wm['mesh'] * 1e3:.1f} ms; encode_image_device "
+        f"{[round(x * 1e3, 1) for x in card_rep['walls_s']['single']]} ms, median "
+        f"{wm['single'] * 1e3:.1f} ms; mesh / single {wm['mesh'] / wm['single']:.3f} [{card}]")
+    log(f"mesh: world size {n_gpu} photo8mp stages (rank 0, host clock, synced; ms): "
+        + json.dumps({k: {s_: round(v_, 1) for s_, v_ in v.items()}
+                      for k, v in card_rep["stages_ms"].items()}) + f" [{card}]")
+    log(f"mesh: collectives at the encode's sizes, world size {n_gpu} (CUDA events, ms a "
+        f"call; bytes each rank sends): " + json.dumps(
+            {k: [round(v["ms"], 4), v["bytes_sent_a_rank"]]
+             for k, v in card_rep["collectives"].items()}) + f" [{card}]")
+
+    # (b) 2 and 4 ranks sharing card 0 over gloo (NCCL refuses two ranks on
+    # one card).
+    for n_ranks in (2, 4):
+        record = (0, n_ranks - 1) if n_ranks == 4 else ()
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.time()
+            MD.launch(n_ranks, MD.shared_card_rank,
+                      (photo, d, ("default", "static", "owner"), record),
+                      device="cuda:0", backend="gloo", timeout_s=400)
+            t_gloo = time.time() - t0
+            got = read_bins(d, ("default", "static", "owner") + (("recorded",) if record else ()))
+            held = {}
+            for r in record:
+                with open(os.path.join(d, f"kernels_rank{r}.json")) as f:
+                    held[r] = json.load(f)
+        for name, data in got.items():
+            if data != want.get(name, data_k):
+                fail(f"mesh (gloo, {n_ranks} ranks on one card): {name} encode {len(data)} B "
+                     f"differs from the single-card encode")
+        log(f"mesh: {n_ranks} ranks sharing card 0 over gloo (on CUDA tensors): "
+            f"photo8mp default {len(got['default'])} B, static {len(got['static'])} B, owner "
+            f"exchange {len(got['owner'])} B, all equal to encode_image_device; launch "
+            f"{t_gloo:.1f} s [{card}]")
+        for r, rep_r in held.items():
+            mesh_launches(f"mesh (gloo, {n_ranks} ranks, rank {r})", rep_r)
+            for name, h_ in rep_r["held"].items():
+                if h_["mismatches"]:
+                    fail(f"mesh rank {r}: {name} disagrees with its plain version in "
+                         f"{h_['mismatches']} elements")
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], h_["max_abs_err"])
+            log(f"mesh: {n_ranks} ranks, rank {r}: every kernel call equal to its plain "
+                f"version; shard-local shapes and kernel ms a call (CUDA events) " + json.dumps(
+                    {k: [v["shapes"], [round(x, 4) for x in v["ms"]]]
+                     for k, v in rep_r["held"].items()})
+                + f"; launches {json.dumps(rep_r['launches'])}, programs "
+                f"{json.dumps(rep_r['programs'])} [{card}]")
 
     if sync_faults:
         fail(f"queueing synchronized with the host in the {sync_faults} tier(s)")

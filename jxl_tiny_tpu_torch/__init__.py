@@ -9,12 +9,14 @@ use). The port imports neither jax nor jxl_tiny_tpu; it keeps its own
 copies of the host-side modules it needs.
 
 Entry points: encode_image_device (one image), encode_images_device
-(pipelined, a generator in input order) and encode_batch_device (N
-same-sized images in one pair of device programs).
+(pipelined, a generator in input order), encode_batch_device (N
+same-sized images in one pair of device programs) and, over the ranks of a
+torch.distributed mesh (parallel/), encode_image_device_mesh and
+encode_batch_device(mesh=).
 """
 from .encoder import (  # noqa: F401
     DeviceEncodeJob, encode_batch_device, encode_image_device,
-    encode_images_device,
+    encode_image_device_mesh, encode_images_device,
 )
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Top-level encoder: image(s) -> JPEG XL codestream(s).
 
 Counterpart of the JAX package's encoder.DeviceEncodeJob /
-encode_image_device / encode_images_device / encode_batch_device, single
-device, every tier of EncoderConfig.
+encode_image_device / encode_images_device / encode_batch_device /
+encode_image_device_mesh, every tier of EncoderConfig, on one card or over
+the ranks of a torch.distributed mesh (parallel/).
 
 A job (DeviceEncodeJob) encodes N same-sized images, one image being
 N = 1, with every kernel launching once a program over all N*G groups.
@@ -36,7 +37,9 @@ job's upload and program A (encode_images_device), and
 Entry points: encode_image_device (one image, one job),
 encode_images_device (a pipeline of one-image jobs in input order) and
 encode_batch_device (one job of N images: one upload, one histogram read,
-one section read).
+one section read), and over a mesh encode_image_device_mesh (one image's
+groups sharded over the ranks) and encode_batch_device(mesh=) (the images
+sharded over the ranks); rank 0 assembles and returns the codestreams.
 
 The capacity retries are the JAX package's own rules, kept so that the two
 packages pick the same buckets: the token cap, the section word budget `ow`
@@ -58,9 +61,11 @@ from .entropy.entropy_write import (
 )
 from .errors import InvalidInputError
 from .ops.dc_kernels import analyze_pack_batch_static, pack_batch_sections
-from .ops.pack_kernels import VAR_FAN, ac_base64_map, var_safe_words
+from .ops.pack_kernels import VAR_FAN, ac_base64_map, sections_wcap, var_safe_words
 from .ops.pipeline import analyze_batch_packed, group_valid_blocks
+from .parallel import sharding as SH
 from .tables import canonical_device, device_tables, to_device
+from .transfer import Fetch, read_parts, resolve_device, upload_pixels
 
 # Below this pixel count a float16 upload is upgraded to float32: f16
 # mantissa noise tilts the adaptive-quant heuristics on very flat content
@@ -68,43 +73,10 @@ from .tables import canonical_device, device_tables, to_device
 F16_AUTO_F32_PIXELS = 2e6
 _CAP_BUCKETS = (32768, 65536, 131072, 262144)
 _OW_BUCKETS = (8192, 32768, 131072)
-_WCAP_MAX = 2 * 1024 * 1024
-_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float16): torch.float16,
-                 np.dtype(np.float32): torch.float32}
 
 # Per-image retries that encode_images_device made in this process (a job
 # re-run from its pixels after an error); chip_smoke.py requires none.
 RETRY_COUNT = 0
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; without one, raise rather than fall back."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain torch "
-                "versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def _next_bucket(buckets, value):
-    for b in buckets:
-        if value <= b:
-            return b
-    raise ValueError(f"value {value} exceeds largest bucket {buckets[-1]}")
-
-
-# ---------------------------------------------------------------------------
-# Host <-> card transfers that never wait for queued work
-# ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _side_stream(device, purpose):
-    """One stream a card for each purpose ("upload", "fetch")."""
-    return torch.cuda.Stream(device)
 
 
 def _upload_dtype(img_dtype, pixels, upload_dtype):
@@ -118,66 +90,11 @@ def _upload_dtype(img_dtype, pixels, upload_dtype):
     return np.dtype(np.float32 if upload_dtype is None else upload_dtype)
 
 
-def _upload_pixels(imgs, dtype, device) -> torch.Tensor:
-    """Host pixels -> a tensor of `dtype` on `device`: one [3, H, W] array,
-    or a list of same-shaped ones as [N, 3, H, W].
-
-    On the card each image is converted straight into one pinned buffer
-    (no stacked copy on the host), whose copy runs on the upload stream;
-    the compute stream waits for the copy's event, and the tensor is
-    recorded on the compute stream so that the caching allocator does not
-    reuse it while work queued there may still read it."""
-    batch = isinstance(imgs, list)
-    if device.type != "cuda":
-        arr = np.stack(imgs) if batch else imgs
-        return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
-    shape = (len(imgs),) + imgs[0].shape if batch else imgs.shape
-    host = torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True)
-    dst = host.numpy()
-    for k, img in enumerate(imgs if batch else [imgs]):
-        np.copyto(dst[k] if batch else dst, img, casting="same_kind")
-    upload = _side_stream(canonical_device(device), "upload")
-    with torch.cuda.stream(upload):
-        up = host.to(device, non_blocking=True)
-    compute = torch.cuda.current_stream(device)
-    compute.wait_stream(upload)
-    up.record_stream(compute)
-    return up
-
-
-class _Fetch:
-    """A device tensor's copy to the host, queued at once and waited for
-    only when read. On the card it goes into pinned memory on the fetch
-    stream, after the event `after` of the compute stream (default: one
-    recorded now, so the copy waits for the work queued so far and not for
-    work queued later); `ready()` polls the copy's event. On the CPU it is
-    the tensor itself."""
-
-    def __init__(self, t, after=None):
-        self._event = self.after = None
-        if not t.is_cuda:
-            self._host = t
-            return
-        if after is None:
-            after = torch.cuda.Event()
-            after.record(torch.cuda.current_stream(t.device))
-        self.after = after
-        fetch = _side_stream(canonical_device(t.device), "fetch")
-        fetch.wait_event(after)
-        with torch.cuda.stream(fetch):
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-        t.record_stream(fetch)
-        self._event = torch.cuda.Event()
-        self._event.record(fetch)
-
-    def ready(self) -> bool:
-        return self._event is None or self._event.query()
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+def _next_bucket(buckets, value):
+    for b in buckets:
+        if value <= b:
+            return b
+    raise ValueError(f"value {value} exceeds largest bucket {buckets[-1]}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,28 +155,29 @@ def _used_words(bits, offs):
     return int(offs[-1] + nblk[-1] * 128) if len(offs) else 0
 
 
-def _wcap(n_sections, ow):
-    return min(1 << int(n_sections * ow).bit_length(), _WCAP_MAX)
-
-
 class _SectionPlan:
     """Program B's section buffers for the ng AC and ngd DC sections of n
     images, with the JAX package's retry rules: `ow` / `ow_dc` grow until
     the largest section fits var_safe_words, and a compacted buffer that
-    would outgrow its `wcap` falls back to per-section rows."""
+    would outgrow its `wcap` falls back to per-section rows.
 
-    def __init__(self, n, ng, ngd, ow):
-        self.n, self.ng, self.ngd = n, ng, ngd
+    On a mesh of `shards` ranks each rank packs ng/shards and ngd/shards
+    consecutive sections into buffers of its own: `wcap` sizes one rank's
+    buffer, word offsets are local to it, and the rules read every rank's
+    section sizes (the all-gathered `small`), so all ranks decide alike."""
+
+    def __init__(self, n, ng, ngd, ow, shards=1):
+        self.n, self.ng, self.ngd, self.shards = n, ng, ngd, shards
         self.ow, self.ow_dc = ow, 8192
         self.compact_ac = self.compact_dc = True
 
     @property
     def wcap(self):
-        return _wcap(self.ng, self.ow)
+        return sections_wcap(self.ng // self.shards, self.ow)
 
     @property
     def wcap_dc(self):
-        return _wcap(self.ngd, self.ow_dc)
+        return sections_wcap(self.ngd // self.shards, self.ow_dc)
 
     def sizes(self, kernels=True):
         """Program B's size arguments."""
@@ -275,6 +193,11 @@ class _SectionPlan:
         ends = np.cumsum([0, self.ng, self.ng, self.ngd, self.ngd, self.ng, self.n, self.n])
         return tuple(small[a:b] for a, b in zip(ends[:-1], ends[1:]))
 
+    def _used_words(self, bits, offs):
+        """Words the fullest rank's compacted buffer needs."""
+        return max(_used_words(b, o) for b, o in zip(np.split(bits, self.shards),
+                                                     np.split(offs, self.shards)))
+
     def grow(self, small) -> bool:
         """Apply the first rule that program B's section sizes break; True
         when program B must run again with the grown sizes."""
@@ -288,38 +211,43 @@ class _SectionPlan:
         if need_dc > var_safe_words(self.ow_dc):
             self.ow_dc = _next_bucket(_OW_BUCKETS, need_dc + margin)
             return True
-        if self.compact_ac and _used_words(ac_bits, ac_offs) > self.wcap:
+        if self.compact_ac and self._used_words(ac_bits, ac_offs) > self.wcap:
             self.compact_ac = False
             return True
-        if self.compact_dc and _used_words(dc_bits, dc_offs) > self.wcap_dc:
+        if self.compact_dc and self._used_words(dc_bits, dc_offs) > self.wcap_dc:
             self.compact_dc = False
             return True
         return False
 
-    def read(self, out_b, small, after=None):
-        """Both kinds of section words in one read (both copies queued
-        before either is waited for) -> (AC writers, DC writers). after:
-        the compute stream's event that program B's outputs are complete at
-        (the copies then do not wait for work queued since)."""
+    def read(self, out_b, small, after=None, mesh=None):
+        """Both kinds of section words in one read -> (AC writers, DC
+        writers). after: the compute stream's event that program B's
+        outputs are complete at (the copies then do not wait for work
+        queued since). With a mesh, every rank's words are gathered to rank
+        0 in one collective, and the other ranks get (None, None)."""
         ac_bits, ac_offs, dc_bits, dc_offs = self.split(small)[:4]
         kinds = ((out_b["ac_words"], ac_bits, ac_offs, self.compact_ac, self.wcap),
                  (out_b["dc_words"], dc_bits, dc_offs, self.compact_dc, self.wcap_dc))
-        fetches = []
+        parts = []
         for words, bits, offs, compact, wcap in kinds:
             if compact:
                 # Download word count, 65536-quantized.
-                dl = min(wcap, -(-max(_used_words(bits, offs), 1) // 65536) * 65536)
-                fetches.append(_Fetch(words[:dl], after))
+                used = self._used_words(bits, offs)
+                parts.append(words[: min(wcap, -(-max(used, 1) // 65536) * 65536)])
             else:
                 maxw = (int(bits.max(initial=0)) + 31) // 32
-                fetches.append(_Fetch(words[:, : max(maxw, 1)], after))
+                parts.append(words[:, : max(maxw, 1)])
+        hosts = read_parts(parts, after, mesh)
+        if hosts is None:
+            return None, None
         out = []
-        for f, (_, bits, offs, compact, _) in zip(fetches, kinds):
-            words = f.numpy()
-            if compact:
-                rows = [words[offs[k]: offs[k] + (bits[k] + 31) // 32]
+        for words, (_, bits, offs, compact, _) in zip(hosts, kinds):
+            if compact:  # [shards, dl]: section k lies in rank k // per's buffer
+                per = len(bits) // self.shards
+                rows = [words[k // per, offs[k]: offs[k] + (bits[k] + 31) // 32]
                         for k in range(len(bits))]
-            else:
+            else:  # [shards, ng / shards, maxw]: one row a section
+                words = words.reshape(-1, words.shape[-1])
                 rows = [np.ascontiguousarray(words[k, : (int(bits[k]) + 31) // 32])
                         for k in range(len(bits))]
             out.append([_writer_from_bits(r.view(np.uint8), int(b))
@@ -354,15 +282,28 @@ class DeviceEncodeJob:
     without one), or e.g. "cpu". tables: the encoder's tables on that
     device (default: built once a device and shared). kernels: False runs
     the plain torch versions of the kernels instead (to check the kernels
-    against them on the card)."""
+    against them on the card).
+
+    mesh (parallel.sharding.Mesh): every rank of the mesh makes the same
+    job on the same images and drives it alike; the programs run on the
+    mesh's device. One image has its group axis sharded over the ranks
+    (padded with empty groups to a rank multiple; dc_exchange, "gather" or
+    "owner", picks how the DC layout gets its maps); N > 1 images have
+    their image axis sharded (padded with zero images), whole images a
+    rank. result() returns the codestreams on rank 0 and None elsewhere."""
 
     def __init__(self, imgs, distance=1.0, upload_dtype=np.float16, cap=32768,
-                 ow=8192, config=None, device=None, tables=None, kernels=True):
+                 ow=8192, config=None, device=None, tables=None, kernels=True,
+                 mesh=None, dc_exchange="gather"):
         imgs = [np.asarray(im) for im in imgs]
         if not imgs or any(im.ndim != 3 or im.shape[0] != 3 for im in imgs):
             raise InvalidInputError("expected N >= 1 [3, H, W] images")
         if any(im.shape != imgs[0].shape or im.dtype != imgs[0].dtype for im in imgs):
             raise InvalidInputError("the images of a job need one shape and one type")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.config = DEFAULT_CONFIG if config is None else config
         self.device = resolve_device(device)
         self.kernels = kernels
@@ -371,13 +312,26 @@ class DeviceEncodeJob:
         self.n, (_, h, w) = len(imgs), imgs[0].shape
         self.dim = ImageDim(w, h)
         self.cap = cap
-        self.plan = _SectionPlan(
-            self.n, self.n * self.dim.num_groups, self.n * self.dim.num_dc_groups, ow
-        )
-        self._yb, self._xb = group_valid_blocks(h, w, self.device, self.n)
-        self._up = _upload_pixels(
-            imgs, _upload_dtype(imgs[0].dtype, h * w, upload_dtype), self.device
-        )
+        self.mesh, self.dc_exchange = mesh, dc_exchange
+        g, gd = self.dim.num_groups, self.dim.num_dc_groups
+        dtype = _upload_dtype(imgs[0].dtype, h * w, upload_dtype)
+        if mesh is None:
+            self._axis = None
+            self.plan = _SectionPlan(self.n, self.n * g, self.n * gd, ow)
+            self._yb, self._xb = group_valid_blocks(h, w, self.device, self.n)
+        elif self.n == 1:
+            self._axis = "groups"
+            self.plan = _SectionPlan(1, SH._pad_to(g, mesh.size), SH._pad_to(gd, mesh.size),
+                                     ow, shards=mesh.size)
+            self._yb, self._xb = SH.padded_valid_blocks(h, w, mesh.size, self.device)
+        else:
+            self._axis = "images"
+            lo, per, n_pad = SH.shard_images(self.n, mesh)
+            imgs = (imgs + [np.zeros_like(imgs[0])] * (n_pad - self.n))[lo: lo + per]
+            self._local = slice(lo, lo + per)
+            self.plan = _SectionPlan(n_pad, n_pad * g, n_pad * gd, ow, shards=mesh.size)
+            self._yb, self._xb = group_valid_blocks(h, w, self.device, per)
+        self._up = upload_pixels(imgs, dtype, self.device)
         self._packed = False
         self._static = not self.config.optimize_code
         if self._static:
@@ -389,23 +343,34 @@ class DeviceEncodeJob:
         else:
             self._start_a()
 
+    def _tiers(self):
+        return dict(cfl=self.config.optimize_chroma_from_luma,
+                    blocks=self.config.optimize_block_sizes)
+
     def _run_a(self, cap):
-        return analyze_batch_packed(
-            self._up, self._yb, self._xb, self.distp, cap, self.tables,
-            cfl=self.config.optimize_chroma_from_luma,
-            blocks=self.config.optimize_block_sizes, kernels=self.kernels,
-        )
+        args = (self._up, self._yb, self._xb, self.distp)
+        if self._axis == "groups":
+            return SH.analyze_image_packed_mesh(
+                *args, self.mesh, cap, self.tables, ysize=self.dim.ysize,
+                xsize=self.dim.xsize, dc_exchange=self.dc_exchange, kernels=self.kernels,
+                **self._tiers())
+        if self._axis == "images":
+            return SH.analyze_batch_packed_mesh(*args, self.mesh, cap, self.tables,
+                                                kernels=self.kernels, **self._tiers())
+        return analyze_batch_packed(*args, cap, self.tables, kernels=self.kernels,
+                                    **self._tiers())
 
     def _start_a(self):
         """Queue program A at the current cap and the copy of its totals
-        and histograms (one transfer) to the host."""
+        and histograms (one transfer; on a mesh, every rank's) to the host."""
         self.out_a = self._run_a(self.cap)
-        t, h = self.out_a["totals"], self.out_a["hists"]
-        self._totals_hists = _Fetch(torch.cat([t, h.reshape(-1)]))
+        t = self.out_a.get("all_totals", self.out_a["totals"])
+        h = self.out_a.get("all_hists", self.out_a["hists"])
+        self._totals_hists = Fetch(torch.cat([t, h.reshape(-1)]))
 
     def _read_totals_hists(self):
         both = self._totals_hists.numpy()
-        return both[: self.plan.ng], both[self.plan.ng:].reshape(self.out_a["hists"].shape)
+        return both[: self.plan.ng], both[self.plan.ng:].reshape(-1, 2, 64, 64)
 
     def ready_for_pack(self) -> bool:
         """True when pack() would not wait for the card: program A's totals
@@ -439,14 +404,16 @@ class DeviceEncodeJob:
             self._start_a()
             totals, hists = self._read_totals_hists()
         base_map = ac_base64_map()
-        d_ac = np.empty((self.n, 9, 64), np.float32)
-        d_dc = np.empty((self.n, 9, 64), np.float32)
+        d_ac = np.empty((self.plan.n, 9, 64), np.float32)
+        d_dc = np.empty((self.plan.n, 9, 64), np.float32)
         self.full_codes, self.dc_codes = [], []
-        for k in range(self.n):
+        for k in range(self.plan.n):
             code, d_ac[k] = build_ac_device_code(hists[k, 0], base_map)
             self.full_codes.append(code)
             code, d_dc[k] = build_dc_device_code(hists[k, 1][: C.NUM_DC_CONTEXTS])
             self.dc_codes.append(code)
+        if self._axis == "images":  # this rank's images' tables
+            d_ac, d_dc = d_ac[self._local], d_dc[self._local]
         self._stream = self.out_a["stream"][:, : self.cap].contiguous()
         self._d_ac = to_device(d_ac, self.device)
         self._d_dc = to_device(d_dc, self.device)
@@ -455,27 +422,37 @@ class DeviceEncodeJob:
 
     def _dispatch_b(self):
         """Queue program B (one-pass tier: the combined program) at the
-        plan's sizes, and the copy of its section sizes to the host."""
+        plan's sizes, and the copy of its section sizes (on a mesh, every
+        rank's) to the host."""
         sizes = self.plan.sizes(self.kernels)
         if self._static:
-            self.out_b = analyze_pack_batch_static(
-                self._up, self._yb, self._xb, self._d_ac, self._d_dc,
-                self._ac_depths, self._dc_depths, self.distp, self.cap,
-                self.tables, cfl=self.config.optimize_chroma_from_luma,
-                blocks=self.config.optimize_block_sizes, **sizes,
-            )
+            args = (self._up, self._yb, self._xb, self._d_ac, self._d_dc,
+                    self._ac_depths, self._dc_depths, self.distp)
+            tiers = self._tiers()
+            if self._axis == "groups":
+                self.out_b = SH.analyze_pack_static_mesh(
+                    *args, self.mesh, self.cap, self.tables, ysize=self.dim.ysize,
+                    xsize=self.dim.xsize, dc_exchange=self.dc_exchange, **tiers, **sizes)
+            elif self._axis == "images":
+                self.out_b = SH.analyze_pack_batch_static_mesh(
+                    *args, self.mesh, self.cap, self.tables, **tiers, **sizes)
+            else:
+                self.out_b = analyze_pack_batch_static(*args, self.cap, self.tables,
+                                                       **tiers, **sizes)
         else:
-            self.out_b = pack_batch_sections(
-                self._stream, self.out_a["totals"], self._d_ac,
-                self.out_a["dc_layout"], self._d_dc, **sizes,
-            )
-        self._small = _Fetch(self.out_b["small"])
+            args = (self._stream, self.out_a["totals"], self._d_ac,
+                    self.out_a["dc_layout"], self._d_dc)
+            if self.mesh is not None:
+                self.out_b = SH.pack_all_sections_mesh(*args, self.mesh, **sizes)
+            else:
+                self.out_b = pack_batch_sections(*args, **sizes)
+        self._small = Fetch(self.out_b["small"])
         self._small_np = None
         self._sections = None
 
     def _small_sync(self):
         """[ac_bits, ac_offs, dc_bits, dc_offs] on the host (one-pass tier:
-        followed by [totals, k_ac[N], k_dc[N]])."""
+        followed by [totals, k_ac[N], k_dc[N]]); on a mesh, every rank's."""
         if self._small_np is None:
             self._small_np = self._small.numpy()
         return self._small_np
@@ -485,10 +462,12 @@ class DeviceEncodeJob:
             return
         while self.plan.grow(self._small_sync()):
             self._dispatch_b()
-        self._sections = self.plan.read(self.out_b, self._small_sync(), self._small.after)
+        self._sections = self.plan.read(self.out_b, self._small_sync(),
+                                        self._small.after, self.mesh)
 
-    def result(self) -> list:
-        """The N codestreams, in the order of the images."""
+    def result(self):
+        """The N codestreams, in the order of the images (on a mesh: on
+        rank 0, and None on the other ranks)."""
         self.pack()
         if self._static:
             # ACGlobal / DCGlobal must serialize the candidate tables the
@@ -499,6 +478,8 @@ class DeviceEncodeJob:
             self.dc_codes = [self._static_codes.dc_codes[k] for k in k_dc]
         self._fetch_sections()
         ac_w, dc_w = self._sections
+        if ac_w is None:
+            return None
         g, gd = self.dim.num_groups, self.dim.num_dc_groups
         return [
             assemble_codestream(
@@ -522,6 +503,27 @@ def encode_image_device(img: np.ndarray, distance: float = 1.0,
                            device=device, kernels=kernels).result()[0]
 
 
+def encode_image_device_mesh(img: np.ndarray, distance: float = 1.0, mesh=None,
+                             cap: int = 32768, ow: int = 8192,
+                             upload_dtype=np.float16, config=None, kernels=True,
+                             dc_exchange="gather"):
+    """encode_image_device over the ranks of a mesh, at full single-card
+    parity (every tier, u8 / f16 / f32 ingest, the capacity retries): the
+    group axis sharded over the ranks, the AC and DC histograms summed as
+    integers, each rank's AC and DC sections packed on its card, the words
+    gathered to rank 0. Every rank calls this with the same image. Returns
+    the bytes on rank 0 (equal to encode_image_device's for any rank count)
+    and None on the other ranks. mesh: None for parallel.sharding.make_mesh()
+    over the initialized process group. dc_exchange: "gather" (every rank
+    all-gathers the per-group maps) or "owner" (each map goes to its DC
+    group's owner only); the bytes are the same."""
+    if mesh is None:
+        mesh = SH.make_mesh()
+    out = DeviceEncodeJob([img], distance, upload_dtype, cap, ow, config=config,
+                          kernels=kernels, mesh=mesh, dc_exchange=dc_exchange).result()
+    return None if out is None else out[0]
+
+
 # ---------------------------------------------------------------------------
 # Several images
 # ---------------------------------------------------------------------------
@@ -529,7 +531,7 @@ def encode_image_device(img: np.ndarray, distance: float = 1.0,
 
 def encode_batch_device(imgs, distance: float = 1.0, upload_dtype=np.float16,
                         cap: int = 32768, ow: int = 8192, config=None,
-                        device=None, kernels=True) -> list:
+                        device=None, kernels=True, mesh=None):
     """N same-sized images in one pair of device programs: one upload, one
     histogram read and one section read for the whole batch; each image
     gets its own entropy codes and codestream, byte-equal to
@@ -537,9 +539,15 @@ def encode_batch_device(imgs, distance: float = 1.0, upload_dtype=np.float16,
     program, over all N*G groups. Images share one shape and one type (u8
     sRGB or float linear). With config.optimize_code=False the whole batch
     is one program (analysis, per-image candidate picks, section packing),
-    with no histogram read and no host code build."""
+    with no histogram read and no host code build.
+
+    mesh: every rank calls this with the same images; each encodes whole
+    images (the image axis padded with zero images to a rank multiple), so
+    the programs hold no collective (one image: its groups are sharded, as
+    in encode_image_device_mesh). Returns the list on rank 0 and None on
+    the other ranks."""
     return DeviceEncodeJob(imgs, distance, upload_dtype, cap, ow, config=config,
-                           device=device, kernels=kernels).result()
+                           device=device, kernels=kernels, mesh=mesh).result()
 
 
 def encode_images_device(imgs, distance=1.0, upload_dtype=np.float16, depth=3,

@@ -454,6 +454,13 @@ class _CopySections:
 copy_sections = _CopySections()
 
 
+def sections_wcap(n_sections, ow):
+    """Words of a compacted section buffer for n_sections sections of at
+    most ow words each: the power of two above n_sections * ow, at most 2M
+    (the JAX package's rule; on a mesh, n_sections is one rank's)."""
+    return min(1 << int(n_sections * ow).bit_length(), 2 * 1024 * 1024)
+
+
 def compact_sections(packed, bits, wcap, kernels=True):
     """packed: [G, ow] i32; bits: [G] section bit lengths.
 

@@ -449,11 +449,12 @@ def dc_geometry(ysize, xsize, device, n_images=1):
     return _dc_geometry(ysize, xsize, n_images, canonical_device(device))
 
 
-def dc_layout_from_maps(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
-                        ysize, xsize, tables, n_images=1):
+def dc_planes(quant_dc, raw_qf, strategy, is_first, ytox, ytob, ysize, xsize,
+              n_images=1):
     """Per-group maps of n_images same-sized images (each image's groups in
-    turn) -> DC-section layout [N*Gd, DC_CAP] i32 + per-image DC histograms
-    [N, 64, 64]. The maps are regrouped as int32, as in the JAX package."""
+    turn) -> the six DC-group planes build_dc_layout takes, [N*Gd, ...]
+    (is_first bool, the rest int32). The maps are regrouped as int32, as in
+    the JAX package."""
     ygr = div_ceil(ysize, 256)
     xgr = div_ceil(xsize, 256)
     ygr_p = div_ceil(ygr, 8) * 8
@@ -466,10 +467,19 @@ def dc_layout_from_maps(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
         a = a.reshape((n_images * ygr_p * xgr_p,) + tuple(a.shape[3:]))
         return DK.regroup_dc(a, ygr_p, xgr_p, trailing, n_images)
 
+    return (regroup(quant_dc, True), regroup(raw_qf, False), regroup(strategy, False),
+            regroup(is_first, False).to(torch.bool), regroup(ytox, False),
+            regroup(ytob, False))
+
+
+def dc_layout_from_maps(quant_dc, raw_qf, strategy, is_first, ytox, ytob,
+                        ysize, xsize, tables, n_images=1):
+    """Per-group maps of n_images same-sized images (each image's groups in
+    turn) -> DC-section layout [N*Gd, DC_CAP] i32 + per-image DC histograms
+    [N, 64, 64]."""
     layout = DK.build_dc_layout(
-        regroup(quant_dc, True), regroup(raw_qf, False), regroup(strategy, False),
-        regroup(is_first, False).to(torch.bool), regroup(ytox, False),
-        regroup(ytob, False), *dc_geometry(ysize, xsize, quant_dc.device, n_images),
-        tables,
+        *dc_planes(quant_dc, raw_qf, strategy, is_first, ytox, ytob, ysize, xsize,
+                   n_images),
+        *dc_geometry(ysize, xsize, quant_dc.device, n_images), tables,
     )
     return layout, DK.dc_hist(layout, n_images)
