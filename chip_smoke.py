@@ -62,6 +62,22 @@ Phases (any failure exits non-zero at once):
               exchange, equal bytes; at 4 ranks every kernel call of rank 0
               and of rank 3, whose 34 groups hold the padding group, held
               against its plain version and timed at its shard-local shape)
+  7. verify   the verification side: photo8mp through the host-packed path
+              (encode_image_host_packed: the full-context analysis on the
+              card, codes and packing on the host), float32 and float16
+              upload, every kernel call (aq_field, estimate_partials) held
+              against its plain version, bytes equal to the plain versions'
+              host-packed encode, the cap retry logged; the device-packed
+              and host-packed analyses of one float16 upload equal (maps,
+              totals, token values); the numpy golden model's encode_image
+              on this machine's host, compared group by group (at most a
+              tenth of the groups may differ at float ties); the full (fast=False) route and make_analyze_fn on a
+              1024x1024 crop, bytes equal to the fast route's; the port's
+              decoder on photo256, gradient512 and odd131x77 through all
+              three pipelines (PSNR above tests/test_roundtrip.py's GOLDEN
+              bar, device and host pixels bit-identical) and on photo8mp's
+              device and golden streams (PSNR within 0.1 dB); the host
+              path's wall split into its stages
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -93,6 +109,11 @@ JAX_CPU_SIZES_8X8 = {"photo256": 3931, "gradient512": 13484}
 # The static tier may cost this much over the two-pass size on photographs
 # (the bound of the JAX package's tests/test_config_tiers.py).
 STATIC_OVERHEAD = 1.06
+# Reference PSNR (dB) of the reference encoder's golden streams at d=1.0,
+# pre-filter, through the verification decoder (GOLDEN of
+# tests/test_roundtrip.py); every pipeline's encode must decode above it
+# less 0.1 dB, the bar that test holds the JAX package's encodes to.
+GOLDEN_PSNR = {"photo256": 39.92, "odd131x77": 40.68, "gradient512": 38.96}
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -101,6 +122,36 @@ def fail(msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def psnr(a, b):
+    """PSNR (dB) of a decoded image, clipped to [0, 1], against the source."""
+    mse = np.mean((np.clip(a, 0, 1).astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(1.0 / max(mse, 1e-12))
+
+
+def timed_stages(stages):
+    """Wrap functions to add their host-clock time to a total: stages =
+    {label: (module, name, sync)}; sync: synchronize the card before the
+    clock stops (the call queues device work). Returns (spent {label: s},
+    restore())."""
+    import torch
+
+    spent = {label: 0.0 for label in stages}
+    real = {}
+    for label, (module, name, sync) in stages.items():
+        real[label] = (module, name, getattr(module, name))
+
+        def run(*args, _label=label, _fn=getattr(module, name), _sync=sync, **kwargs):
+            t = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            if _sync:
+                torch.cuda.synchronize()
+            spent[_label] += time.perf_counter() - t
+            return out
+
+        setattr(module, name, run)
+    return spent, lambda: [setattr(m, n, f) for m, n, f in real.values()]
 
 
 def profiled(fn):
@@ -1063,10 +1114,222 @@ def main():
     if sync_faults:
         fail(f"queueing synchronized with the host in the {sync_faults} tier(s)")
 
+    torch.cuda.empty_cache()
+    verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts, wrappers)
+
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
+                 wrappers):
+    """Phase 7: the host-packed path, the numpy golden model and the
+    decoder on the card's machine (see the module docstring)."""
+    import torch
+
+    from jxl_tiny_tpu_torch import encoder as TE
+    from jxl_tiny_tpu_torch.bitstream import sections as S
+    from jxl_tiny_tpu_torch.common import compute_distance_params
+    from jxl_tiny_tpu_torch.decode import decode_jxl
+    from jxl_tiny_tpu_torch.io.pfm import read_pfm
+    from jxl_tiny_tpu_torch.ops import pack_kernels as PK
+    from jxl_tiny_tpu_torch.ops import pipeline as PL
+    from jxl_tiny_tpu_torch.ops import pipeline_full as PF
+    from jxl_tiny_tpu_torch.tools import kernel_check as KC
+
+    t_phase = time.time()
+    on_path = ("aq_field", "estimate_partials")
+
+    def host_encode(img, **kw):
+        return TE.encode_image_host_packed(img, DIST, **kw)
+
+    # (a) photo8mp through the host-packed path, float32 and float16 upload:
+    # launches counted from 0 just before the encode and read just after,
+    # every kernel call recorded and held against its plain version.
+    host = {}
+    for label, up in (("float32", None), ("float16", np.float16)):
+        host_encode(img8, upload_dtype=up)  # warm
+        reset_counts()
+        data, calls, launches = KC.recorded(lambda: host_encode(img8, upload_dtype=up))
+        host[label] = data
+        retry = launches["aq_field"] == 2
+        off_path = {k: v for k, v in launches.items() if k not in on_path and v}
+        if any(not launches[k] for k in on_path) or off_path:
+            fail(f"host-packed path ({label}): unexpected launches {launches}")
+        if label == "float32":
+            for k, r in rec.items():  # bitpack_groups_var: its own counter
+                r["launches_host_packed"] = launches.get(k, PK.bitpack_groups_var.launches)
+        held = hold_calls(f"host-packed photo8mp, {label} upload",
+                          {k: calls[k] for k in on_path})
+        for k, h_ in held.items():
+            rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], h_["max_abs_err"])
+        del calls
+        if host_encode(img8, upload_dtype=up, kernels=False) != data:
+            fail(f"host-packed photo8mp ({label}): bytes differ from the plain versions'")
+        log(f"verify: host-packed photo8mp ({label} upload): {len(data)} bytes, equal to "
+            f"the plain versions' host-packed encode; launches {json.dumps(launches)}; "
+            f"cap retry {'ran (a group past 16,384 tokens)' if retry else 'not needed'}")
+
+    # The device-packed and host-packed analyses of the same float16 upload
+    # hold the same quantized image: equal maps, totals and token values
+    # (the contexts differ: base-64 clusters against the full 1980).
+    distp = compute_distance_params(DIST)
+    up16 = TE.upload_pixels(img8, np.dtype(np.float16), dev)
+    yb, xb = PL.group_valid_blocks(img8.shape[1], img8.shape[2], dev)
+    d_out = PL.analyze_groups_packed(PL.extract_groups_device(up16), yb, xb, distp, 32768,
+                                     tables)
+    h_out = PF.analyze_image_fast(up16, yb, xb, distp, 32768, tables)
+    keys = ("quant_dc", "raw_qf", "strategy", "is_first", "ytox", "ytob")
+    same = {k: torch.equal(a.long(), h_out[k].long()) for k, a in zip(keys, d_out["maps"])}
+    same["totals"] = torch.equal(d_out["totals"].long(), h_out["totals"].long())
+    pos = torch.arange(32768, device=dev)[None, :] < h_out["totals"][:, None]
+    same["token values"] = torch.equal(torch.where(pos, d_out["stream"][:, :32768] & 0xFFFF, 0),
+                                       torch.where(pos, h_out["stream"] & 0xFFFF, 0))
+    if not all(same.values()):
+        fail(f"photo8mp float16: device-packed and host-packed analyses differ: {same}")
+    log(f"verify: photo8mp float16 upload: device-packed and host-packed analyses equal "
+        f"({', '.join(same)}; {int(h_out['totals'].sum())} tokens)")
+    del d_out, h_out, up16
+
+    # The numpy golden model on this machine's host, its group analyses
+    # kept and compared group by group with the host-packed analysis
+    # (float32): an independent float implementation, so a few decisions
+    # at rounding ties may differ (on the CPU, the JAX package's own
+    # encode_image_jax differs from its golden model in 8 of photo8mp's
+    # 135 groups, the port's in 5); more than a tenth of the groups would
+    # be a fault, not a tie.
+    gold_groups = {}
+
+    def golden_analyze(img, gx, gy, distp_):
+        gold_groups[(gy, gx)] = TE.analyze_group_numpy(img, gx, gy, distp_)
+        return gold_groups[(gy, gx)]
+
+    t0 = time.time()
+    golden = TE.encode_image(img8, DIST, analyze_fn=golden_analyze)
+    t_golden = time.time() - t0
+    out = TE.analyze_host_packed(img8, distp)
+    dim = TE.ImageDim(img8.shape[2], img8.shape[1])
+    differing = []
+    for i, (gy, gx) in enumerate((gy, gx) for gy in range(dim.ysize_groups)
+                                 for gx in range(dim.xsize_groups)):
+        g = gold_groups[(gy, gx)]
+        ty, tx = g.ytox.shape
+        n_map = sum(int((np.asarray(getattr(g, k)).astype(np.int64) != v.astype(np.int64)).sum())
+                    for k, v in (("strategy", out["strategy"][i, :g.yb, :g.xb]),
+                                 ("is_first", out["is_first"][i, :g.yb, :g.xb]),
+                                 ("raw_qf", out["raw_qf"][i, :g.yb, :g.xb]),
+                                 ("quant_dc", out["quant_dc"][i, :, :g.yb, :g.xb]),
+                                 ("ytox", out["ytox"][i, :ty, :tx]),
+                                 ("ytob", out["ytob"][i, :ty, :tx])))
+        ctx, val = S.ac_group_token_stream(g.tokens, g.counts, g.strategy, g.is_first)
+        gs = (ctx.astype(np.uint32) << 16) | val
+        hs = out["stream"][i, : int(out["totals"][i])]
+        n = min(len(gs), len(hs))
+        n_tok = int((gs[:n] != hs[:n]).sum()) + abs(len(gs) - len(hs))
+        if n_map or n_tok:
+            differing.append([i, n_map, n_tok])
+    log(f"verify: numpy golden model (encode_image) photo8mp: {len(golden)} bytes "
+        f"(host-packed {len(host['float32'])}), wall {t_golden:.2f} s (this machine's "
+        f"host); groups whose maps or tokens differ from the host-packed analysis "
+        f"(group, map values, token positions): {len(differing)} of {dim.num_groups} "
+        f"{differing}")
+    if len(differing) > dim.num_groups // 10:
+        fail(f"the numpy golden model and the host-packed path differ in {len(differing)} "
+             f"of {dim.num_groups} groups")
+
+    # (b) The full (fast=False) route and make_analyze_fn on a 1024x1024 crop.
+    crop = np.ascontiguousarray(img8[:, 512:1536, 1024:2048])
+    fast_b = host_encode(crop)
+    reset_counts()
+    full_b = host_encode(crop, fast=False)
+    full_launches = {k: wrappers[k].launches for k in on_path}
+    per_group = TE.encode_image(crop, DIST, analyze_fn=PF.make_analyze_fn())
+    if not (full_b == per_group == fast_b) or not all(full_launches.values()):
+        fail(f"crop 1024x1024: full route {len(full_b)} B, make_analyze_fn {len(per_group)} "
+             f"B, fast route {len(fast_b)} B; full-route launches {full_launches}")
+    log(f"verify: crop 1024x1024: full route (fast=False; launches "
+        f"{json.dumps(full_launches)}) and make_analyze_fn (16 one-group analyses) equal "
+        f"the fast route's {len(fast_b)} bytes")
+
+    # (c) The port's decoder: three images through all three pipelines.
+    t_dec = {}
+    for name, ref_psnr in GOLDEN_PSNR.items():
+        img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+        streams = {"device": TE.encode_image_device(img, DIST), "host": host_encode(img),
+                   "numpy": TE.encode_image(img, DIST)}
+        pix, ps = {}, {}
+        for pipe, data in streams.items():
+            t0 = time.time()
+            pix[pipe] = decode_jxl(data)
+            t_dec[f"{name} {pipe}"] = time.time() - t0
+            ps[pipe] = psnr(pix[pipe], img)
+            if not ps[pipe] > ref_psnr - 0.1:
+                fail(f"{name} ({pipe}): {ps[pipe]:.3f} dB is not above {ref_psnr} - 0.1")
+        if not np.array_equal(pix["device"], pix["host"]):
+            fail(f"{name}: the device and host streams decode to different pixels")
+        log(f"verify: {name}: sizes " + json.dumps({k: len(v) for k, v in streams.items()})
+            + ", PSNR (dB) " + json.dumps({k: round(v, 3) for k, v in ps.items()})
+            + f" > {ref_psnr} - 0.1; device and host pixels bit-identical")
+
+    # photo8mp: the default device encode and the golden stream, once each.
+    t0 = time.time()
+    p_dev = psnr(decode_jxl(data_k), img8)
+    t_dec["photo8mp device"] = time.time() - t0
+    t0 = time.time()
+    p_gold = psnr(decode_jxl(golden), img8)
+    t_dec["photo8mp numpy"] = time.time() - t0
+    if abs(p_dev - p_gold) > 0.1:
+        fail(f"photo8mp: device stream {p_dev:.3f} dB vs golden {p_gold:.3f} dB")
+    log(f"verify: photo8mp decoded by the port: device stream ({len(data_k)} B, float16 "
+        f"upload) {p_dev:.3f} dB, golden stream ({len(golden)} B) {p_gold:.3f} dB; decoder "
+        f"walls (s) " + json.dumps({k: round(v, 3) for k, v in t_dec.items()}))
+
+    # (d) The host path's warm wall, and one encode split into its stages
+    # (host clock; the stages that queue device work synchronize first).
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if host_encode(img8) != host["float32"]:
+            fail("host-packed photo8mp: repeated encodes differ")
+        walls.append(time.perf_counter() - t0)
+    spent, restore = timed_stages({
+        "upload": (TE, "upload_pixels", True),
+        "analysis": (PF, "analyze_image_fast", True),
+        "stream download": (TE, "host_arrays", False),
+        "DC sections' ops": (TE, "_build_dc_group", False),
+        "histograms": (S, "histogram_sections", False),
+        "codes": (TE, "build_entropy_code", False),
+        "serialization": (S, "serialize_section", False),
+    })
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = host_encode(img8)
+        total = time.perf_counter() - t0
+    finally:
+        restore()
+    if data != host["float32"]:
+        fail("host-packed photo8mp: the staged encode differs")
+    spent["assembly (group maps, headers, TOC, packing)"] = total - sum(spent.values())
+    dim = TE.ImageDim(img8.shape[2], img8.shape[1])
+    yb, xb = (torch.from_numpy(a).to(dev) for a in TE._valid_blocks(dim))
+    up = TE.upload_pixels(img8, np.dtype(np.float32), dev)
+    a_ms = KC.cuda_time_ms(lambda: PF.analyze_image_fast(up, yb, xb, distp, 16384, tables),
+                           3, 1)
+    out = TE.host_arrays(PF.analyze_image_fast(up, yb, xb, distp, 16384, tables))
+    nbytes = sum(v.nbytes for v in out.values())
+    mp = img8.shape[1] * img8.shape[2] / 1e6
+    wall = statistics.median(walls)
+    log(f"verify: host-packed photo8mp (float32 upload, cap 16384): warm wall median of 3 "
+        f"{wall * 1e3:.1f} ms ({[round(w_ * 1e3, 1) for w_ in walls]}), {mp / wall:.2f} MP/s; "
+        f"analysis {a_ms:.3f} ms (CUDA events); download {nbytes} bytes; stages (ms) "
+        + json.dumps({k: round(v * 1e3, 1) for k, v in spent.items()})
+        + f", total {total * 1e3:.1f} ms [{card}]")
+    log(f"verify: phase 7 took {time.time() - t_phase:.1f} s")
+
 
 
 if __name__ == "__main__":

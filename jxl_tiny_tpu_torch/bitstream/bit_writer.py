@@ -51,6 +51,19 @@ class BitWriter:
             self._chunks.append((nb, v))
         self._bits_written += other._bits_written
 
+    @classmethod
+    def from_packed(cls, raw: np.ndarray, nbits: int) -> "BitWriter":
+        """A writer holding `nbits` bits whose byte image is `raw` (u8, LSB
+        first); bits of the last partial byte past `nbits` are dropped."""
+        w = cls()
+        full = nbits // 8
+        if full:
+            w.write_arrays(np.full(full, 8, np.uint8), raw[:full].astype(np.uint64))
+        rem = nbits & 7
+        if rem:
+            w.write(rem, int(raw[full]) & ((1 << rem) - 1))
+        return w
+
     def append_bytes_aligned(self, raw: bytes):
         """Byte-aligned append of pre-packed bytes."""
         assert self._bits_written % 8 == 0

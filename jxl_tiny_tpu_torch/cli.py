@@ -5,7 +5,13 @@ for the options this port covers):
     python -m jxl_tiny_tpu_torch.cli <a.pfm> <b.pfm> ... <output dir> [-d D]
 
 With several inputs the output is a directory, and the images are
-pipelined through the card (encode_images_device)."""
+pipelined through the card (encode_images_device).
+
+--pipeline picks the route of a single image: device (the default: the
+analysis and the entropy packing on the card), host (the analysis on the
+card, the codes and packing on the host: the JAX package's `tpu` choice,
+encode_image_host_packed) or numpy (the golden model on the host,
+encode_image). The three give codestreams of the same quantized image."""
 import argparse
 import os
 import sys
@@ -23,6 +29,10 @@ def main(argv=None):
     p.add_argument("output", help="output .jxl (one input) or directory (several)")
     p.add_argument("-d", "--distance", type=float, default=1.0,
                    help="Butteraugli distance target (default 1.0)")
+    p.add_argument("--pipeline", choices=("device", "host", "numpy"), default="device",
+                   help="device = analysis + entropy packing on the card (default); "
+                   "host = analysis on the card, packing on the host; numpy = "
+                   "the host golden model")
     p.add_argument("--f32-upload", action="store_true",
                    help="upload pixels as float32 (default float16)")
     p.add_argument("--no-cfl", action="store_true",
@@ -46,6 +56,10 @@ def main(argv=None):
         optimize_chroma_from_luma=not args.no_cfl,
         optimize_block_sizes=not args.no_block_sizes,
     )
+    if config != EncoderConfig() and args.pipeline != "device":
+        # The verification pipelines have the full-capability tier only;
+        # failing beats encoding silently at another tier.
+        p.error("capability-tier flags require --pipeline device")
     upload = None if args.f32_upload else np.float16
     try:
         if len(args.input) > 1:
@@ -57,7 +71,7 @@ def main(argv=None):
 
 
 def _single(args, config, upload):
-    from .encoder import encode_image_device
+    from . import encoder
     from .io.pfm import read_pfm
 
     img = read_pfm(args.input[0])
@@ -65,8 +79,14 @@ def _single(args, config, upload):
         print(f"Read {img.shape[2]}x{img.shape[1]} pixels input image.",
               file=sys.stderr)
     t = time.time()
-    data = encode_image_device(img, args.distance, upload_dtype=upload,
-                               config=config, device=args.device)
+    if args.pipeline == "device":
+        data = encoder.encode_image_device(img, args.distance, upload_dtype=upload,
+                                           config=config, device=args.device)
+    elif args.pipeline == "host":
+        data = encoder.encode_image_host_packed(img, args.distance, upload_dtype=upload,
+                                                device=args.device)
+    else:
+        data = encoder.encode_image(img, args.distance)
     dt = time.time() - t
     with open(args.output, "wb") as f:
         f.write(data)

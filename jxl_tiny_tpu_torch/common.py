@@ -19,6 +19,14 @@ class ImageDim:
     ysize: int
 
     @property
+    def xsize_blocks(self):
+        return div_ceil(self.xsize, 8)
+
+    @property
+    def ysize_blocks(self):
+        return div_ceil(self.ysize, 8)
+
+    @property
     def xsize_groups(self):
         return div_ceil(self.xsize, 256)
 

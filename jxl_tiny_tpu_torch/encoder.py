@@ -3,7 +3,12 @@
 Counterpart of the JAX package's encoder.DeviceEncodeJob /
 encode_image_device / encode_images_device / encode_batch_device /
 encode_image_device_mesh, every tier of EncoderConfig, on one card or over
-the ranks of a torch.distributed mesh (parallel/).
+the ranks of a torch.distributed mesh (parallel/); and of its two
+verification pipelines, three independent routes to the same quantized
+image: encode_image (the numpy golden model, ref/, on the host) and
+encode_image_host_packed (the JAX package's encode_image_jax: the
+full-context analysis on the card, ops/pipeline_full, and the codes,
+sections and packing on the host).
 
 A job (DeviceEncodeJob) encodes N same-sized images, one image being
 N = 1, with every kernel launching once a program over all N*G groups.
@@ -55,17 +60,23 @@ import torch
 from . import constants as C
 from .bitstream import sections as S
 from .bitstream.bit_writer import BitWriter
-from .common import DEFAULT_CONFIG, ImageDim, clamp_distance, compute_distance_params
+from .common import (
+    DEFAULT_CONFIG, ImageDim, clamp_distance, compute_distance_params, div_ceil,
+)
+from .entropy import build_entropy_code
 from .entropy.entropy_write import (
     build_ac_device_code, build_dc_device_code, load_static_codes,
 )
 from .errors import InvalidInputError
 from .ops.dc_kernels import analyze_pack_batch_static, pack_batch_sections
 from .ops.pack_kernels import VAR_FAN, ac_base64_map, sections_wcap, var_safe_words
+from .ops import pipeline_full as PF
 from .ops.pipeline import analyze_batch_packed, group_valid_blocks
 from .parallel import sharding as SH
+from .ref import group_np as G
+from .ref import pipeline_np as P
 from .tables import canonical_device, device_tables, to_device
-from .transfer import Fetch, read_parts, resolve_device, upload_pixels
+from .transfer import Fetch, host_arrays, read_parts, resolve_device, upload_pixels
 
 # Below this pixel count a float16 upload is upgraded to float32: f16
 # mantissa noise tilts the adaptive-quant heuristics on very flat content
@@ -117,36 +128,296 @@ def _static_code_tables(device):
 # ---------------------------------------------------------------------------
 
 
-def _writer_from_bits(raw_bytes: np.ndarray, nbits: int) -> BitWriter:
-    """BitWriter holding `nbits` bits whose byte image is raw_bytes (LSB
-    first); trailing bits of the last partial byte are zeroed."""
-    w = BitWriter()
-    full = nbits // 8
-    if full:
-        w.write_arrays(np.full(full, 8, np.uint8), raw_bytes[:full].astype(np.uint64))
-    rem = nbits & 7
-    if rem:
-        w.write(rem, int(raw_bytes[full]) & ((1 << rem) - 1))
-    return w
+def assemble_codestream(groups, dim, distp, ac_ops=None, ac_histo=None,
+                        ac_writers=None, ac_code=None, dc_code=None,
+                        dc_writers=None) -> bytes:
+    """Build the sections, optimize the entropy codes, assemble the
+    codestream. groups: {(gy, gx): GroupResult} (None when both kinds of
+    sections come packed).
 
+    ac_ops: the AC sections' ops, built from groups' token arrays when
+    None; ac_histo: their histogram, counted from ac_ops when None.
+    ac_writers / ac_code and dc_writers / dc_code: sections packed already
+    (one BitWriter a section, the device-packed path) and the codes they
+    were packed with; histograms and packing are skipped for those."""
+    dc_ops = []
+    if dc_writers is None:
+        for dgy in range(dim.ysize_dc_groups):
+            for dgx in range(dim.xsize_dc_groups):
+                dc_ops.append(_build_dc_group(groups, dim, dgy, dgx))
+    if ac_ops is None and ac_writers is None:
+        ac_ops = []
+        for gy in range(dim.ysize_groups):
+            for gx in range(dim.xsize_groups):
+                g = groups[(gy, gx)]
+                ac_ops.append(S.build_ac_group_section(g.tokens, g.counts, g.strategy,
+                                                       g.is_first))
+    # Two-pass entropy optimization (enc_frame.cc:846-850).
+    if dc_code is None:
+        dc_code = build_entropy_code(S.histogram_sections(dc_ops, C.NUM_DC_CONTEXTS))
+    if ac_code is None:
+        if ac_histo is None:
+            ac_histo = S.histogram_sections(ac_ops, C.NUM_AC_CONTEXTS)
+        ac_code = build_entropy_code(ac_histo)
 
-def assemble_codestream(dim, distp, ac_writers, ac_code, dc_writers, dc_code) -> bytes:
-    """Headers, global sections, TOC and the device-packed sections
-    (ac_writers / dc_writers: one BitWriter a section)."""
     sections = []
     w = BitWriter()
     S.write_dc_global(w, distp, dim.num_dc_groups, dc_code)
     sections.append(w)
+    if dc_writers is None:
+        dc_writers = [S.serialize_section(ops, dc_code) for ops in dc_ops]
     sections.extend(dc_writers)
     w = BitWriter()
     S.write_ac_global(w, dim.num_groups, ac_code)
     sections.append(w)
+    if ac_writers is None:
+        ac_writers = [S.serialize_section(ops, ac_code) for ops in ac_ops]
     sections.extend(ac_writers)
     out = BitWriter()
     S.write_file_header(out, dim.xsize, dim.ysize)
     S.write_frame_header(out, distp.x_qm_scale, distp.epf_iters)
     S.write_toc_and_sections(out, sections)
     return out.to_bytes()
+
+
+def _build_dc_group(groups, dim: ImageDim, dgy, dgx):
+    """One DC group's maps, gathered from its member groups, as the ops of
+    its section."""
+    ydb = div_ceil(min(2048, dim.ysize - dgy * 2048), 8)
+    xdb = div_ceil(min(2048, dim.xsize - dgx * 2048), 8)
+    quant_dc = np.zeros((3, ydb, xdb), np.int16)
+    raw_qf = np.zeros((ydb, xdb), np.uint8)
+    strategy_code = np.zeros((ydb, xdb), np.int64)
+    is_first = np.zeros((ydb, xdb), bool)
+    ty = div_ceil(ydb * 8, 64)
+    tx = div_ceil(xdb * 8, 64)
+    ytox = np.zeros((ty, tx), np.int8)
+    ytob = np.zeros((ty, tx), np.int8)
+
+    gy0, gx0 = dgy * 8, dgx * 8
+    for gy in range(gy0, min(gy0 + 8, dim.ysize_groups)):
+        for gx in range(gx0, min(gx0 + 8, dim.xsize_groups)):
+            g = groups[(gy, gx)]
+            by0 = (gy - gy0) * 32
+            bx0 = (gx - gx0) * 32
+            quant_dc[:, by0: by0 + g.yb, bx0: bx0 + g.xb] = g.quant_dc
+            raw_qf[by0: by0 + g.yb, bx0: bx0 + g.xb] = g.raw_qf
+            strategy_code[by0: by0 + g.yb, bx0: bx0 + g.xb] = C.STRATEGY_CODE[g.strategy]
+            is_first[by0: by0 + g.yb, bx0: bx0 + g.xb] = g.is_first
+            t_y0 = (gy - gy0) * 4
+            t_x0 = (gx - gx0) * 4
+            gty, gtx = g.ytox.shape
+            ytox[t_y0: t_y0 + gty, t_x0: t_x0 + gtx] = g.ytox
+            ytob[t_y0: t_y0 + gty, t_x0: t_x0 + gtx] = g.ytob
+
+    return S.build_dc_group_section(quant_dc, raw_qf, strategy_code, is_first, ytox, ytob)
+
+
+# ---------------------------------------------------------------------------
+# The numpy golden path
+# ---------------------------------------------------------------------------
+
+
+class GroupResult:
+    """Per-group analysis outputs (cropped to the valid block dims)."""
+
+    def __init__(self, gt, strategy, is_first, raw_qf, ytox, ytob, yb, xb):
+        if gt is not None:
+            self.tokens = gt.tokens[:yb, :xb]
+            self.counts = gt.counts[:yb, :xb]
+            self.quant_dc = gt.quant_dc[:, :yb, :xb]
+        self.strategy = strategy[:yb, :xb]
+        self.is_first = is_first[:yb, :xb]
+        self.raw_qf = raw_qf[:yb, :xb]
+        self.ytox = ytox
+        self.ytob = ytob
+        self.yb = yb
+        self.xb = xb
+
+
+def _extract_group(img, gx, gy):
+    """Edge-replicated 256x256 patch (CopyAndPadImage, enc_frame.cc:597-617)."""
+    _, h, w = img.shape
+    ys = np.clip(gy * 256 + np.arange(256), 0, h - 1)
+    xs = np.clip(gx * 256 + np.arange(256), 0, w - 1)
+    return img[:, ys[:, None], xs[None, :]]
+
+
+def _pad_tile_map(m):
+    ty, tx = m.shape
+    return np.pad(m, ((0, 4 - ty), (0, 4 - tx)), mode="edge")
+
+
+def analyze_group_numpy(img, gx, gy, distp, aq_fn=None):
+    """Group (gx, gy) of a [3, H, W] float image through the numpy golden
+    model (ref/). aq_fn: the AQ field (default
+    pipeline_np.compute_adaptive_quant_field)."""
+    _, h, w = img.shape
+    xb = div_ceil(min(256, w - gx * 256), 8)
+    yb = div_ceil(min(256, h - gy * 256), 8)
+    xyb = P.to_xyb(_extract_group(img, gx, gy))
+    if aq_fn is None:
+        aq_fn = P.compute_adaptive_quant_field
+    qf, masking, raw_qf = aq_fn(xyb, distp.distance, distp.inv_scale)
+    ytox, ytob = P.compute_cmap(xyb, xb, yb)
+    ytox_p = _pad_tile_map(ytox)
+    ytob_p = _pad_tile_map(ytob)
+    strategy, is_first = P.compute_ac_strategy(
+        xyb, qf, masking, ytox_p, ytob_p, distp.distance, xb, yb
+    )
+    raw_qf = P.adjust_quant_field(strategy, is_first, raw_qf)
+    gt = G.encode_group(
+        xyb, strategy, is_first, raw_qf, ytox_p, ytob_p, distp.scale, distp.scale_dc,
+        distp.x_qm_mul, xb, yb,
+    )
+    return GroupResult(gt, strategy, is_first, raw_qf, ytox, ytob, yb, xb)
+
+
+def _check_image(img):
+    if img.ndim != 3 or img.shape[0] != 3:
+        raise InvalidInputError(f"expected a [3, H, W] image, got {img.shape}")
+
+
+def encode_image(img: np.ndarray, distance: float = 1.0, analyze_fn=None) -> bytes:
+    """[3, H, W] float32 linear sRGB -> .jxl bytes through the numpy golden
+    model on the host, group by group. analyze_fn(img, gx, gy, distp) ->
+    GroupResult replaces the golden model's analysis (e.g.
+    ops.pipeline_full.make_analyze_fn: one group at a time on the card)."""
+    _check_image(img)
+    distp = compute_distance_params(clamp_distance(distance))
+    dim = ImageDim(img.shape[2], img.shape[1])
+    if analyze_fn is None:
+        analyze_fn = analyze_group_numpy
+    groups = {(gy, gx): analyze_fn(img, gx, gy, distp)
+              for gy in range(dim.ysize_groups) for gx in range(dim.xsize_groups)}
+    return assemble_codestream(groups, dim, distp)
+
+
+def encode_file(pfm_path, out_path, distance=1.0, analyze_fn=None) -> int:
+    """encode_image of a PFM file into out_path; returns the byte count."""
+    from .io.pfm import read_pfm
+
+    data = encode_image(read_pfm(pfm_path), distance, analyze_fn=analyze_fn)
+    with open(out_path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+# ---------------------------------------------------------------------------
+# The host-packed path (the JAX package's encode_image_jax)
+# ---------------------------------------------------------------------------
+
+
+def _valid_blocks(dim: ImageDim):
+    """(yb, xb) [G] i32 host arrays (views of group_valid_blocks' shared
+    tensors: not to be written): each group's valid block rows and columns."""
+    return tuple(v.numpy() for v in group_valid_blocks(dim.ysize, dim.xsize, "cpu"))
+
+
+def _extract_all_groups(img, dim: ImageDim):
+    """All group patches [G, 3, 256, 256] f32 (edge replicated) + valid dims."""
+    groups = np.empty((dim.num_groups, 3, 256, 256), np.float32)
+    i = 0
+    for gy in range(dim.ysize_groups):
+        for gx in range(dim.xsize_groups):
+            groups[i] = _extract_group(img, gx, gy)
+            i += 1
+    return (groups,) + _valid_blocks(dim)
+
+
+def analyze_host_packed(img, distp, mesh=None, fast=True, cap=16384, upload_dtype=None,
+                        device=None, tables=None, kernels=True):
+    """The device half of encode_image_host_packed: the analysis of every
+    group, on the host as arrays (host_arrays). Without a mesh, or on a
+    mesh of one rank with fast, the image goes up whole and is tiled on the
+    device (analyze_image_fast); otherwise the groups are cut on the host
+    and analyzed over the mesh (analyze_groups_sharded; without a mesh on
+    one device). A fast analysis whose largest group overflows `cap` runs
+    again at pipeline_full.FULL_CAP."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
+    device = resolve_device(device)
+    tables = device_tables(device) if tables is None else tables
+    dim = ImageDim(img.shape[2], img.shape[1])
+    if fast and (mesh is None or mesh.size == 1):
+        dtype = img.dtype if upload_dtype is None else np.dtype(upload_dtype)
+        up = upload_pixels(img, dtype, device)
+        yb, xb = group_valid_blocks(dim.ysize, dim.xsize, device)
+
+        def run(c):
+            return host_arrays(PF.analyze_image_fast(up, yb, xb, distp, c, tables, kernels))
+    else:
+        groups, yb, xb = _extract_all_groups(img, dim)
+        if mesh is not None:
+            def run(c):
+                return SH.analyze_groups_sharded(groups, yb, xb, distp, mesh, fast, c,
+                                                 tables, kernels)
+        else:
+            def run(c):
+                return host_arrays(PF.analyze_groups(
+                    to_device(groups, device), to_device(yb, device), to_device(xb, device),
+                    distp, tables, kernels))
+    out = run(cap)
+    if fast and int(out["totals"].max(initial=0)) > cap:
+        out = run(PF.FULL_CAP)
+    return out
+
+
+def assemble_host_packed(out, dim: ImageDim, distp, fast=True) -> bytes:
+    """The host half of encode_image_host_packed: the groups' maps, the AC
+    sections' ops (the streams when fast, else the per-cell token arrays),
+    the histograms and codes (1980 AC contexts, clustered), serialization
+    and assembly. out: analyze_host_packed's arrays; its `hist` (a mesh's
+    integer sum over the ranks), where present, is the AC histogram."""
+    ac_ops = None
+    if fast:
+        ac_ops = [[("stream", out["stream"][i, : int(out["totals"][i])])]
+                  for i in range(dim.num_groups)]
+    ac_histo = out["hist"].astype(np.uint32) if "hist" in out else None
+    yb_arr, xb_arr = _valid_blocks(dim)
+    groups = {}
+    i = 0
+    for gy in range(dim.ysize_groups):
+        for gx in range(dim.xsize_groups):
+            yb, xb = int(yb_arr[i]), int(xb_arr[i])
+            ty, tx = div_ceil(yb, 8), div_ceil(xb, 8)
+            gt = None if fast else G.GroupTokens(
+                tokens=out["tokens"][i], counts=out["counts"][i],
+                quant_dc=out["quant_dc"][i], nzeros=None)
+            gr = GroupResult(gt, out["strategy"][i], out["is_first"][i], out["raw_qf"][i],
+                             out["ytox"][i, :ty, :tx], out["ytob"][i, :ty, :tx], yb, xb)
+            if fast:
+                gr.quant_dc = out["quant_dc"][i][:, :yb, :xb]
+            groups[(gy, gx)] = gr
+            i += 1
+    return assemble_codestream(groups, dim, distp, ac_ops=ac_ops, ac_histo=ac_histo)
+
+
+def encode_image_host_packed(img: np.ndarray, distance: float = 1.0, mesh=None,
+                             fast=True, cap: int = 16384, upload_dtype=None,
+                             device=None, tables=None, kernels=True) -> bytes:
+    """The host-packed path: every group analyzed on the card with the full
+    1980-context tokens (ops/pipeline_full), the codes built, the sections
+    serialized and the codestream assembled on the host: the JAX package's
+    encode_image_jax (byte-equal to it on the CPU on the test images). Its
+    decisions are program A's, so it holds the same quantized image as the
+    device-packed path of the same upload.
+
+    fast: only the compact emission-ordered streams (stream [G, cap]) and
+    the per-block maps come back, not the token arrays; a group past `cap`
+    tokens re-runs the analysis at pipeline_full.FULL_CAP. upload_dtype:
+    the pixels' type on the way up (None: as given). mesh
+    (parallel.sharding.Mesh): the groups sharded over its ranks, every rank
+    calling this with the same image and returning the bytes. device: None
+    for the CUDA card (raises without one), or e.g. "cpu". kernels: False
+    runs the plain versions of the AQ and strategy kernels."""
+    _check_image(img)
+    distp = compute_distance_params(clamp_distance(distance))
+    out = analyze_host_packed(img, distp, mesh, fast, cap, upload_dtype, device, tables,
+                              kernels)
+    return assemble_host_packed(out, ImageDim(img.shape[2], img.shape[1]), distp, fast)
 
 
 def _used_words(bits, offs):
@@ -250,7 +521,7 @@ class _SectionPlan:
                 words = words.reshape(-1, words.shape[-1])
                 rows = [np.ascontiguousarray(words[k, : (int(bits[k]) + 31) // 32])
                         for k in range(len(bits))]
-            out.append([_writer_from_bits(r.view(np.uint8), int(b))
+            out.append([BitWriter.from_packed(r.view(np.uint8), int(b))
                         for r, b in zip(rows, bits)])
         return out[0], out[1]
 
@@ -483,8 +754,9 @@ class DeviceEncodeJob:
         g, gd = self.dim.num_groups, self.dim.num_dc_groups
         return [
             assemble_codestream(
-                self.dim, self.distp, ac_w[k * g: (k + 1) * g], self.full_codes[k],
-                dc_w[k * gd: (k + 1) * gd], self.dc_codes[k],
+                None, self.dim, self.distp, ac_writers=ac_w[k * g: (k + 1) * g],
+                ac_code=self.full_codes[k], dc_writers=dc_w[k * gd: (k + 1) * gd],
+                dc_code=self.dc_codes[k],
             )
             for k in range(self.n)
         ]

@@ -22,3 +22,13 @@ def uint_encode(values):
     nbits = np.where(small, 0, nbits_big).astype(np.int32)
     bits = np.where(small, 0, bits_big).astype(np.uint32)
     return token, nbits, bits
+
+
+def uint_decode_token(token: int, reader) -> int:
+    """Single-value inverse (used by the verification decoder)."""
+    if token < 16:
+        return token
+    n = token >> 2
+    nbits = n - 2
+    bits = reader.read(nbits)
+    return (1 << n) | ((token & 3) << nbits) | bits

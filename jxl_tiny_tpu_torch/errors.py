@@ -10,3 +10,9 @@ class JxlTinyError(Exception):
 
 class InvalidInputError(JxlTinyError):
     """Bad user input: malformed PFM, invalid distance, wrong shape."""
+
+
+class DecodeError(JxlTinyError):
+    """Malformed or truncated codestream (verification decoder, decode/).
+    Every defect a bitstream mutation can introduce surfaces as this type:
+    over-reads, nonzero padding, wrong section sizes, bad field values."""

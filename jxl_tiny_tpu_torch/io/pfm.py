@@ -1,4 +1,4 @@
-"""PFM (portable float map) reader.
+"""PFM (portable float map) reader and writer.
 
 Functional equivalent of the reference's minimal parser
 (encoder/read_pfm.cc:24-213): 'PF' color images only, scale sign selects
@@ -32,3 +32,13 @@ def read_pfm(path) -> np.ndarray:
     img = np.frombuffer(data, dtype=dtype, count=w * h * 3, offset=pos)
     img = img.reshape(h, w, 3)[::-1]  # bottom-up -> top-down
     return np.ascontiguousarray(img.transpose(2, 0, 1)).astype(np.float32)
+
+
+def write_pfm(path, img: np.ndarray):
+    """img: [3, H, W] float32, linear sRGB."""
+    if img.ndim != 3 or img.shape[0] != 3:
+        raise InvalidInputError(f"expected a [3, H, W] image, got {img.shape}")
+    h, w = img.shape[1], img.shape[2]
+    with open(path, "wb") as f:
+        f.write(b"PF\n%d %d\n-1.0\n" % (w, h))
+        f.write(img.transpose(1, 2, 0)[::-1].astype("<f4").tobytes())

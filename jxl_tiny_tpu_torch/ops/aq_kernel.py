@@ -10,16 +10,16 @@ tiny [G, 32, 32] maps (`adaptive_quant_field`), as in the JAX package, so
 that only + - * / sqrt min max abs run inside the kernel and the kernel
 equals its plain version bit for bit on the card.
 
-Every sum uses the pinned left-fold order of ops/_ref.strided_sum (lanes
-first, then rows); the plain version spells it out with strided slices and
-never calls torch.sum.
+Every sum uses the pinned left-fold order of ref/pipeline_np.strided_sum
+(lanes first, then rows); the plain version spells it out with strided
+slices and never calls torch.sum.
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ._build import I, P, check, load, require, stream_ptr
-from ._ref import strided_sum
+from ..ref.pipeline_np import strided_sum
 
 F32 = np.float32
 

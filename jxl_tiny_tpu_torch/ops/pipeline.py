@@ -270,7 +270,10 @@ def _scatter_covered(values, strat, is_first):
 def encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
                    ytob, scale, scale_dc, x_qm_mul, tables, kernels):
     """Quantize kernel + the neighbour-dependent context math on the
-    [G,3,32,32] maps (the JAX package's encode_middle)."""
+    [G,3,32,32] maps (the JAX package's _encode_middle). `ordered` is in
+    emission layout [G,32,32,3,128] (channels Y, X, B); every other map is
+    channel-major [G,3,32,32] (X, Y, B), `nzero_ctx` in the base-64
+    clustering (pack_kernels.base64_nz)."""
     fac_x, fac_b = cfl_factors(ytox, ytob)
     quant = quantize_cells if kernels else quantize_cells_plain
     ordered, nzeros_total, qdcp, lastnz = quant(
@@ -320,8 +323,8 @@ def encode_middle(coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox,
     prev_init = (nzeros_total <= (size_b >> 4)).to(torch.int32)
     return dict(
         ordered=ordered, nzeros_total=nzeros_total, lastnz=lastnz,
-        covered=covered, block_ctx=block_ctx, nzero_ctx=nzero_ctx,
-        prev_init=prev_init, quant_dc=quant_dc,
+        covered=covered, block_ctx=block_ctx, nz_bucket=nz_bucket,
+        nzero_ctx=nzero_ctx, prev_init=prev_init, quant_dc=quant_dc, nz_map=nz_map,
     )
 
 
@@ -363,15 +366,16 @@ def encode_groups_stream(coef8, coef_v, coef_h, strategy, is_first, raw_qf,
     return stream, totals, m["quant_dc"]
 
 
-def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
-                          cfl=True, blocks=True, kernels=True, n_images=1):
-    """Group-batch core of program A over n_images images' groups in turn.
-    Returns dict of stream, totals, hist ([n_images, 64, 64]) and maps (the
-    per-group maps the DC layout is built from)."""
+def analysis_front(groups, yb_valid, xb_valid, distp, tables, cfl=True, blocks=True,
+                   kernels=True):
+    """The decisions every analysis shares, on [G, 3, 256, 256] linear
+    groups: XYB, the AQ field, the 8x8 DCTs, CfL, the AC-strategy search
+    and the adjusted quant field. Returns dict(coef8 [G,3,32,32,8,8],
+    coef_v, coef_h, strategy, is_first, raw_qf, ytox, ytob, valid [G,32,32]
+    bool)."""
     g = groups.shape[0]
     dev = groups.device
-    groups = groups.to(torch.float32)
-    xyb = to_xyb(groups)
+    xyb = to_xyb(groups.to(torch.float32))
     qf, masking, raw_qf = adaptive_quant_field(
         xyb, distp.distance, distp.inv_scale, kernels
     )
@@ -398,9 +402,21 @@ def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
         # cell a DCT8; empty tensors of the right shape keep its contract.
         coef_v = torch.zeros((g, 3, 16, 32, 128), dtype=torch.float32, device=dev)
         coef_h = torch.zeros((g, 3, 32, 16, 128), dtype=torch.float32, device=dev)
+    return dict(coef8=coef8, coef_v=coef_v, coef_h=coef_h, strategy=strategy,
+                is_first=is_first, raw_qf=raw_qf, ytox=ytox, ytob=ytob, valid=valid)
+
+
+def analyze_groups_packed(groups, yb_valid, xb_valid, distp, cap, tables,
+                          cfl=True, blocks=True, kernels=True, n_images=1):
+    """Group-batch core of program A over n_images images' groups in turn.
+    Returns dict of stream, totals, hist ([n_images, 64, 64]) and maps (the
+    per-group maps the DC layout is built from)."""
+    f = analysis_front(groups, yb_valid, xb_valid, distp, tables, cfl, blocks, kernels)
+    strategy, is_first, raw_qf, ytox, ytob = (
+        f[k] for k in ("strategy", "is_first", "raw_qf", "ytox", "ytob"))
     stream, totals, quant_dc = encode_groups_stream(
-        coef8, coef_v, coef_h, strategy, is_first, raw_qf, ytox, ytob,
-        distp.scale, distp.scale_dc, distp.x_qm_mul, valid, cap, tables, kernels,
+        f["coef8"], f["coef_v"], f["coef_h"], strategy, is_first, raw_qf, ytox, ytob,
+        distp.scale, distp.scale_dc, distp.x_qm_mul, f["valid"], cap, tables, kernels,
     )
     hist = hist_base64(stream[:, :cap], torch.clamp_max(totals, cap), n_images)
     return dict(

@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..encoder import encode_image_device_mesh
-from ..transfer import read_parts
+from ..transfer import read_parts, resolve_device
 from .sharding import make_mesh
 
 _LOOPBACK = ("127.0.0.1", "localhost", "::1")
@@ -28,10 +28,12 @@ def initialize(init_method: str, world_size: int, rank: int, device=None,
                backend=None, timeout_s: float = 60.0):
     """init_process_group for this rank. init_method: file://<path>,
     tcp://127.0.0.1:<port> (loopback only) or env:// (torchrun's
-    MASTER_ADDR / MASTER_PORT). backend: None for NCCL when device is a
-    CUDA device (or None with a card) and gloo otherwise; ranks that share
-    one card pass "gloo". Every collective of the group fails after
-    timeout_s (at most 60 s) instead of waiting for a rank that is gone."""
+    MASTER_ADDR / MASTER_PORT). device: None for this rank's CUDA card
+    (raises without one, before any group comes up), or e.g. "cpu" for a
+    group of CPU ranks. backend: None for NCCL on a CUDA device and gloo on
+    the CPU; ranks that share one card pass "gloo". Every collective of the
+    group fails after timeout_s (at most 60 s) instead of waiting for a
+    rank that is gone."""
     url = urlparse(init_method)
     if url.scheme == "tcp" and url.hostname not in _LOOPBACK:
         raise ValueError(f"{init_method}: only a loopback address is allowed")
@@ -39,9 +41,7 @@ def initialize(init_method: str, world_size: int, rank: int, device=None,
         raise ValueError(f"{init_method}: expected file://, tcp:// or env://")
     if timeout_s > 60:
         raise ValueError("the group's timeout is at most 60 s")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device.index if device.index is not None
                               else rank % torch.cuda.device_count())

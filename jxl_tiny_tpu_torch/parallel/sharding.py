@@ -35,9 +35,10 @@ from ..common import div_ceil
 from ..constants import DC_PAD
 from ..ops import dc_kernels as DK
 from ..ops import pipeline as PL
+from ..ops import pipeline_full as PF
 from ..ops.pack_kernels import pack_ac_sections, sections_wcap
 from ..tables import canonical_device, device_tables, to_device
-from ..transfer import resolve_device
+from ..transfer import host_arrays, resolve_device
 
 # The DC layout's padding entry (PAD << 16) as the int32 pattern the
 # port's layouts hold.
@@ -240,6 +241,27 @@ def shard_groups(groups, yb_valid, xb_valid, mesh: Mesh):
         return torch.cat([a, a.new_zeros((gps - (hi - lo),) + tuple(a.shape[1:]))])
 
     return block(groups), block(yb_valid), block(xb_valid), g
+
+
+def analyze_groups_sharded(groups, yb_valid, xb_valid, distp, mesh: Mesh, fast=False,
+                           cap=16384, tables=None, kernels=True):
+    """The full-context analysis (ops/pipeline_full: analyze_groups_fast
+    when fast, else analyze_groups) of [G, 3, 256, 256] host groups, the
+    group axis sharded over the mesh (shard_groups). Every rank gets every
+    group's outputs as host arrays (transfer.host_arrays), all-gathered and
+    cut to G, and `hist`, the AC histogram [1980, 64] summed over the
+    ranks (an integer sum: equal to one device's for any rank count)."""
+    gs, ybs, xbs, g = shard_groups(groups, yb_valid, xb_valid, mesh)
+    tables = device_tables(mesh.device) if tables is None else tables
+    if fast:
+        out = PF.analyze_groups_fast(gs, ybs, xbs, distp, cap, tables, kernels,
+                                     with_hist=True)
+    else:
+        out = PF.analyze_groups(gs, ybs, xbs, distp, tables, kernels, with_hist=True)
+    hist = mesh.psum(out.pop("hist"))
+    # Gathered as int32: gloo refuses int16 (quant_dc).
+    full = {k: mesh.all_gather(v.to(torch.int32))[:g].to(v.dtype) for k, v in out.items()}
+    return dict(host_arrays(full), hist=hist.cpu().numpy())
 
 
 # ---------------------------------------------------------------------------

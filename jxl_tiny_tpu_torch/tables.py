@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from . import constants as C
-from .ops._ref import dct16_half_mats, dct_matrix, threshold_map
+from .ref.dct_np import dct16_half_mats, dct_matrix
+from .ref.group_np import threshold_map
 
 
 def _strategy_tables():

@@ -184,6 +184,24 @@ def multihost_entry(mesh, image, out_dir):
     np.savez(os.path.join(out_dir, "host0_gather.npz"), *host)
 
 
+def host_packed_cases(mesh, image, cases, out_dir):
+    """encode_image_host_packed(mesh=) of `image` in each case (name,
+    kwargs): every rank writes host_<name>.rank<r>.bin (every rank returns
+    the bytes); rank 0 also writes host_hist.npy, analyze_groups_sharded's
+    AC histogram of the image's groups (summed over the ranks)."""
+    from ..common import ImageDim, compute_distance_params
+    from ..encoder import _extract_all_groups, encode_image_host_packed
+    from ..parallel import sharding as SH
+
+    img = load_image(image)
+    for name, kwargs in cases:
+        data = encode_image_host_packed(img, mesh=mesh, **kwargs)
+        _write(out_dir, f"host_{name}.rank{mesh.rank}.bin", data)
+    groups, yb, xb = _extract_all_groups(img, ImageDim(img.shape[2], img.shape[1]))
+    out = SH.analyze_groups_sharded(groups, yb, xb, compute_distance_params(1.0), mesh)
+    if mesh.rank == 0:
+        np.save(os.path.join(out_dir, "host_hist.npy"), out["hist"])
+
 def program_outputs(mesh, image, out_dir, cap=32768, ow=8192):
     """Image-level program A and program B of the default tier on this
     rank's shard (image: [3, H, W] f32): each rank saves rank<r>.npz with

@@ -94,6 +94,17 @@ class Fetch:
         return self._host.numpy()
 
 
+def host_arrays(out):
+    """A dict of device results -> host arrays, waiting for each: token
+    words ("stream", "tokens": int32 on the device) as uint32, the rest in
+    their own types."""
+    host = {}
+    for k, v in out.items():
+        a = v.cpu().numpy()
+        host[k] = a.view(np.uint32) if k in ("stream", "tokens") else a
+    return host
+
+
 def read_parts(parts, after=None, mesh=None):
     """Device tensors -> host arrays with a leading rank axis ([1, ...]
     without a mesh), all copies queued before any is waited for. With a

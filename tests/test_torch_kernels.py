@@ -809,7 +809,7 @@ def _aq_field_strips(xyb, consts, color, strip_blocks):
     cell index clamped at the group's edge (never at the strip's), the
     erosion through the kernel's sorting network and the sums in the
     pinned order."""
-    from jxl_tiny_tpu_torch.ops._ref import strided_sum
+    from jxl_tiny_tpu_torch.ref.pipeline_np import strided_sum
 
     k = AQ._k(consts)
     rod = AQ._ratio_of_derivatives

@@ -21,7 +21,12 @@ thread, with a 60 s group timeout and a launch deadline.
     8 groups, as the JAX package's test_packed_path_shard_invariance
 (h) parallel.multihost's encode_image_multihost at 2 and 4 ranks equals
     the single encode with float32 upload, and host0_gather stacks every
-    rank's tensors on rank 0
+    rank's tensors on rank 0; initialize(device=None) raises on a host
+    without a card before any process group comes up
+(i) the host-packed path over 2 ranks (analyze_groups_sharded,
+    encode_image_host_packed(mesh=)): every rank's bytes equal the one-rank
+    encode, fast, full and with the cap retry, and the histogram summed
+    over the ranks equals one device's
 gpu: two ranks sharing the card over gloo, on a 1024x1024 crop of
     photo8mp: bytes equal to encode_image_device, and every kernel call of
     rank 0 equal to its plain version
@@ -95,6 +100,9 @@ IMAGE_CASES = [
     ("cap_retry", IMG, dict(F32, cap=4096)),
     ("ow_retry", IMG, dict(F32, ow=256)),
 ]
+# encode_image_host_packed(mesh=) at 2 ranks (i): fast, full, and a cap that
+# groups 0-2 overflow (rank 0's) and groups 3-5 do not (rank 1's).
+HOST_CASES = [("fast", {}), ("full", dict(fast=False)), ("cap_retry", dict(cap=4096))]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,6 +131,8 @@ def mesh_runs(tmp_path_factory):
             yb = np.full(8, 32, np.int32)
             tasks = [(MD.encode_cases, (cases, str(out))),
                      (MD.multihost_entry, (IMG, str(out)))]
+            if n == 2:
+                tasks.append((MD.host_packed_cases, (IMG, HOST_CASES, str(out))))
             if n == 4:
                 os.makedirs(out / "groups")
                 tasks.append((MD.group_programs, (GROUPS, yb, yb, str(out / "groups"))))
@@ -251,6 +261,39 @@ def test_failing_rank_ends_the_launch(tmp_path):
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="initialized process group"):
         SH.make_mesh("cpu")
+
+
+@pytest.mark.parametrize("case", [c[0] for c in HOST_CASES])
+def test_host_packed_mesh_matches_one_rank(mesh_runs, case):
+    kw = dict(HOST_CASES)[case]
+    want = TE.encode_image_host_packed(IMG, 1.0, device="cpu", **kw)
+    for r in range(2):
+        assert (mesh_runs(2) / f"host_{case}.rank{r}.bin").read_bytes() == want, r
+
+
+def test_sharded_histogram_matches_one_device(mesh_runs):
+    from jxl_tiny_tpu_torch.ops import pipeline_full as PF
+
+    groups, yb, xb = TE._extract_all_groups(IMG, TE.ImageDim(700, 300))
+    one = PF.analyze_groups(torch.from_numpy(groups), torch.from_numpy(yb),
+                            torch.from_numpy(xb), compute_distance_params(1.0),
+                            device_tables("cpu"), with_hist=True)["hist"].numpy()
+    got = np.load(mesh_runs(2) / "host_hist.npy")
+    assert got.shape == (1980, 64) and np.array_equal(got, one)
+    assert int(one.sum()) > 0
+
+
+def test_initialize_without_a_card_raises():
+    """device=None means this rank's card: no card, no process group."""
+    import torch.distributed as dist
+
+    from jxl_tiny_tpu_torch.parallel import multihost
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize(f"tcp://127.0.0.1:{MD.free_port()}", 1, 0)
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("url", ["tcp://10.0.0.1:2345", "udp://127.0.0.1:1"])
