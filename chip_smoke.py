@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (jxl_tiny_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--trace-out DIR]
 
 Phases (any failure exits non-zero at once):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile every kernel in jxl_tiny_tpu_torch/csrc (nvcc, parallel)
+  2. build    compile every kernel in jxl_tiny_tpu_torch/csrc (nvcc, parallel;
+              csrc/probe.cu also at the probe's two other flag sets)
               and the native host packer (cpp/pack.cc, g++), which must load:
               BitWriter.to_bytes may not fall back to numpy here
   3. kernels  feed each kernel the real tensors of the port's default path
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero at once):
   4. encode   the 8 MP encode at the default configuration through the
               public entry point: every kernel of the path must have
               launched, and the bytes must equal the same encode through
-              the plain versions; the same for the one-pass static tier;
+              the plain versions; its warm walls and the two programs'
+              device times from utils/profiling.encode_report, whose report
+              is printed on one line; the same for the one-pass static tier;
               then bitpack_groups_var driven as program B's AC packer
               (its own launch count); then the fixed-8x8 configuration on
               small images, and photo256 / gradient512 sizes at both
@@ -78,6 +81,23 @@ Phases (any failure exits non-zero at once):
               bar, device and host pixels bit-identical) and on photo8mp's
               device and golden streams (PSNR within 0.1 dB); the host
               path's wall split into its stages
+  8. debug    utils/debug.debug_mode (NaN checks after program A's float
+              stages) on photo256, gradient512 and odd131x77 in the default
+              and static tiers and photo8mp in the default tier, on the
+              kernels and with kernels=False (their plain versions on the
+              card): bytes equal to the same encode outside debug mode,
+              every kernel launched in the first and none in the second,
+              walls of all three; the exactness probe (tools/probe_op_exactness) on the
+              card, one line an op with each column's share of values off
+              the float64 reference and max ulp, probe_elementwise at the
+              port's flags bit-equal to its plain version for div, sqrt,
+              recip and a*b+c, probe_dot_i8 equal to the int32 product, both
+              kernels timed at the probe's shapes; with --trace-out DIR,
+              the Chrome trace of encode_report(photo8mp) lands in DIR,
+              gzipped. compute-sanitizer is not part of
+              the run: it could not attach to the card it was tried on
+              (PERF.md); `python -m jxl_tiny_tpu_torch.utils.debug` is the
+              program to run under it where it can
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -94,6 +114,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 # Instructions csrc/strategy.cu issues a coefficient-channel value: ~22 in
 # the arithmetic of a warp item's 12 values a lane, ~10 for its loads,
 # butterfly and stores (cuobjdump -sass of the sm_90a build; see
@@ -130,55 +151,6 @@ def psnr(a, b):
     return 10 * np.log10(1.0 / max(mse, 1e-12))
 
 
-def timed_stages(stages):
-    """Wrap functions to add their host-clock time to a total: stages =
-    {label: (module, name, sync)}; sync: synchronize the card before the
-    clock stops (the call queues device work). Returns (spent {label: s},
-    restore())."""
-    import torch
-
-    spent = {label: 0.0 for label in stages}
-    real = {}
-    for label, (module, name, sync) in stages.items():
-        real[label] = (module, name, getattr(module, name))
-
-        def run(*args, _label=label, _fn=getattr(module, name), _sync=sync, **kwargs):
-            t = time.perf_counter()
-            out = _fn(*args, **kwargs)
-            if _sync:
-                torch.cuda.synchronize()
-            spent[_label] += time.perf_counter() - t
-            return out
-
-        setattr(module, name, run)
-    return spent, lambda: [setattr(m, n, f) for m, n, f in real.values()]
-
-
-def profiled(fn):
-    """Run fn under torch.profiler; returns (wall ms, device-busy ms, the
-    six kernels with the most device time as (name, ms, calls)), or None
-    where the profiler records no device time. A measurement only: never
-    fails the run."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    # Device-side entries only (kernels, copies, fills): an operator's own
-    # entry carries its kernels' time again.
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        return None
-    rows.sort(key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows), [(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]]
-
-
 def bound(nbytes, nops):
     t_b = nbytes / MEM_BYTES_PER_S * 1e3
     t_o = nops / F32_OPS_PER_S * 1e3
@@ -201,7 +173,13 @@ def compare(name, outs_k, outs_p, nan_ok=False):
     return err
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--trace-out", default=None,
+                   help="directory for the gzipped torch.profiler trace of phase 8")
+    args = p.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "jxl_tiny_tpu_torch")):
         fail("jxl_tiny_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
     sys.path.insert(0, HERE)
@@ -225,10 +203,22 @@ def main():
     from jxl_tiny_tpu_torch.ops import _build
 
     # -- 2. build ----------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jxl_tiny_tpu_torch.ops import probe_kernels as PBK
+
     t0 = time.time()
-    libs = _build.build_all()
-    log(f"build: {len(libs)} libraries ({', '.join(sorted(libs))}) in "
-        f"{time.time() - t0:.1f} s")
+    # Every source at the port's flags, and the probe's kernel at the two
+    # other flag sets it compares, all nvcc processes at once.
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(_build.build_all)] + [
+            pool.submit(_build.build_all, PBK.FLAG_SETS[fs], ("probe",))
+            for fs in PBK.FLAG_SETS if fs != "port"]
+        libs = builds[0].result()
+        for b in builds[1:]:
+            b.result()
+    log(f"build: {len(libs)} libraries ({', '.join(sorted(libs))}) and csrc/probe.cu at "
+        f"{len(builds) - 1} other flag sets in {time.time() - t0:.1f} s")
     from jxl_tiny_tpu_torch.cpp import build as native
 
     t0 = time.time()
@@ -255,7 +245,7 @@ def main():
     from jxl_tiny_tpu_torch.tables import numpy_tables, tables_from_numpy
     from jxl_tiny_tpu_torch.tools import bench_strategy_bitpack as BS
     from jxl_tiny_tpu_torch.tools import kernel_check as KC
-    from jxl_tiny_tpu_torch.tools.kernel_check import cuda_time_ms
+    from jxl_tiny_tpu_torch.utils.profiling import busy_share, device_time, encode_report
 
     dev = torch.device("cuda")
     tables = tables_from_numpy(numpy_tables(), dev)
@@ -292,8 +282,8 @@ def main():
     outs_k = AQ.aq_field(xyb, distp.distance)
     outs_p = AQ.aq_field_plain(xyb, consts, color)
     err = compare("aq_field", outs_k, outs_p)
-    ms = cuda_time_ms(lambda: AQ.aq_field(xyb, distp.distance), 20)
-    pms = cuda_time_ms(lambda: AQ.aq_field_plain(xyb, consts, color), 3, 1)
+    ms = device_time(lambda: AQ.aq_field(xyb, distp.distance), 20)
+    pms = device_time(lambda: AQ.aq_field_plain(xyb, consts, color), 3, 1)
     npx = g * 256 * 256
     record("aq_field", "jxl_tiny_tpu_torch/csrc/aq.cu",
            "jxl_tiny_tpu/ops/aq_kernel.py:89", err, ms, pms,
@@ -333,8 +323,8 @@ def main():
     outs_k = SK.estimate_partials(*e_args, slope)
     outs_p = SK.estimate_partials_plain(*e_args, slope)
     err = compare("estimate_partials", outs_k, outs_p)
-    ms = cuda_time_ms(lambda: SK.estimate_partials(*e_args, slope), 20)
-    pms = cuda_time_ms(lambda: SK.estimate_partials_plain(*e_args, slope), 3, 1)
+    ms = device_time(lambda: SK.estimate_partials(*e_args, slope), 20)
+    pms = device_time(lambda: SK.estimate_partials_plain(*e_args, slope), 3, 1)
     e_bytes = sum(a.numel() * 4 for a in e_args) + sum(o.numel() * 4 for o in outs_k)
     n_coef = sum(a.numel() for a in e_args[:3])
     # Operations: what the kernel's SASS issues a coefficient-channel value
@@ -399,11 +389,11 @@ def main():
     outs_k = QK.quantize_cells(*q_args)
     outs_p = QK.quantize_cells_plain(*q_args)
     err = max(err8, compare("quantize_cells", outs_k, outs_p))
-    ms = cuda_time_ms(lambda: QK.quantize_cells(*q_args), 20)
-    ms8 = cuda_time_ms(lambda: QK.quantize_cells(*q8_args), 20)
+    ms = device_time(lambda: QK.quantize_cells(*q_args), 20)
+    ms8 = device_time(lambda: QK.quantize_cells(*q8_args), 20)
     log(f"  quantize_cells on both maps: real strategy map {ms:.4f} ms, all-DCT8 "
         f"map {ms8:.4f} ms [{card}]")
-    pms = cuda_time_ms(lambda: QK.quantize_cells_plain(*q_args), 3, 1)
+    pms = device_time(lambda: QK.quantize_cells_plain(*q_args), 3, 1)
 
     # quantize_cells at its edges: one group; all three strategies inside
     # each group, cell by cell (pairs that disagree); values at the clamps.
@@ -461,8 +451,8 @@ def main():
     tok_k = TK.tokenize_rows(x, meta, tables)
     tok_p = TK.tokenize_rows_plain(x, meta, tables.freq_tab, tables.nnz_thresh0)
     err = max(err8, compare("tokenize_rows", [tok_k], [tok_p]))
-    ms = cuda_time_ms(lambda: TK.tokenize_rows(x, meta, tables), 20)
-    pms = cuda_time_ms(lambda: TK.tokenize_rows_plain(x, meta, tables.freq_tab,
+    ms = device_time(lambda: TK.tokenize_rows(x, meta, tables), 20)
+    pms = device_time(lambda: TK.tokenize_rows_plain(x, meta, tables.freq_tab,
                                                      tables.nnz_thresh0), 3, 1)
     n = x.shape[0]
     record("tokenize_rows", "jxl_tiny_tpu_torch/csrc/tokenize.cu",
@@ -477,8 +467,8 @@ def main():
     def library_times(buf, idx, vals, want, what, reps):
         if not torch.equal(buf.zero_().index_put_(idx, vals), want):
             fail(f"{what}: the zero_ + index_put_ yardstick computes something else")
-        pair = cuda_time_ms(lambda: buf.zero_().index_put_(idx, vals), reps)
-        alone = cuda_time_ms(lambda: buf.index_put_(idx, vals), reps)
+        pair = device_time(lambda: buf.zero_().index_put_(idx, vals), reps)
+        alone = device_time(lambda: buf.index_put_(idx, vals), reps)
         return pair, alone
 
     def hold_compact_rows(label, rows_tok, cnt, cap):
@@ -496,8 +486,8 @@ def main():
         idx, vals = (gi[msk], pos[msk]), rows_tok[msk]
         lms, lms_alone = library_times(torch.empty_like(s_k), idx, vals, s_k,
                                        f"compact_rows ({label})", 20)
-        ms = cuda_time_ms(lambda: PK.compact_rows(rows_tok, cnt, start, cap), 20)
-        pms = cuda_time_ms(lambda: PK.compact_rows_plain(rows_tok, cnt, start, cap), 3, 1)
+        ms = device_time(lambda: PK.compact_rows(rows_tok, cnt, start, cap), 20)
+        pms = device_time(lambda: PK.compact_rows_plain(rows_tok, cnt, start, cap), 3, 1)
         nplaced = int(vals.numel())
         b_ms, b_by = bound(cnt.numel() * 12 + nplaced * 4 + s_k.numel() * 4, nplaced * 4)
         log(f"  compact_rows ({label}): rows {list(rows_tok.shape)} cap {cap}, "
@@ -520,8 +510,8 @@ def main():
         dsel, psel = dst[cm], packed[cm]
         lms, lms_alone = library_times(torch.empty_like(b_k), (dsel,), psel, b_k,
                                        f"copy_sections ({label})", 50)
-        ms = cuda_time_ms(lambda: PK.copy_sections(packed, nblk, offs, wcap), 50)
-        pms = cuda_time_ms(lambda: PK.copy_sections_plain(packed, nblk, offs, wcap), 5, 1)
+        ms = device_time(lambda: PK.copy_sections(packed, nblk, offs, wcap), 50)
+        pms = device_time(lambda: PK.copy_sections_plain(packed, nblk, offs, wcap), 5, 1)
         ncopy = int(psel.numel())
         b_ms, b_by = bound(ng * 16 + ncopy * 4 + wcap * 4, 0)
         log(f"  copy_sections ({label}): packed {list(packed.shape)} wcap {wcap}, "
@@ -603,7 +593,7 @@ def main():
         over = int(dc_ends[:, -1].max()) > 32 * ow_dc
         hold_var(f"DC tokens, ow {ow_dc}{' (sections overflow)' if over else ''}", dc32,
                  ow_dc, None if over else packed_dc)
-        dms = cuda_time_ms(lambda: PK.bitpack_groups_var(*dc32, ow_dc), 20)
+        dms = device_time(lambda: PK.bitpack_groups_var(*dc32, ow_dc), 20)
         log(f"  bitpack_groups_var (DC tokens {list(dc_data.shape)}, ow {ow_dc}): kernel "
             f"{dms:.4f} ms, bound {var_bound(dc32[1], ow_dc)[0]:.4f} ms [{card}]")
     del (layout, dc_data, dc_nbits, dc_ends, dc_pos, d_rows, d_cnt, packed_dc,
@@ -647,25 +637,25 @@ def main():
          lambda: [torch.tensor(v, dtype=torch.int64, device=dev)
                   for v in DK.dc_group_geometry(h, w).values()]),
     )
-    stage_ms = {name: cuda_time_ms(fn, 3, 1) for name, fn in stage_fns}
+    stage_ms = {name: device_time(fn, 3, 1) for name, fn in stage_fns}
     log(f"program A stages photo8mp (CUDA events, ms): "
         f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}; sum "
         f"{sum(stage_ms.values()):.3f} ms [{card}]")
     # Where dc_layout_from_maps' device time goes, kernel by kernel.
-    prof = profiled(dict(stage_fns)["dc_layout_from_maps (+ dc_hist)"])
+    prof = busy_share(dict(stage_fns)["dc_layout_from_maps (+ dc_hist)"])
     log("dc_layout_from_maps under torch.profiler: " + (
         "no device time recorded" if prof is None else
-        f"wall {prof[0]:.3f} ms, device busy {prof[1]:.3f} ms; top kernels "
-        f"(name, ms, calls) {prof[2]}") + f" [{card}]")
+        f"wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms; top kernels "
+        f"(name, ms, calls) {prof['top']}") + f" [{card}]")
 
     # Token bit packer on the same AC tokens (off every encode path), as
     # int32 fields (converted once, outside the timed launches); then at an
     # ow that cuts a thread's run of tokens in two.
     ac32 = tuple(t.to(torch.int32) for t in (data, nbits, ends - nbits))
     err, w_k = hold_var("AC tokens", ac32, ow, packed)
-    ms = cuda_time_ms(lambda: PK.bitpack_groups_var(*ac32, ow), 20)
-    pms = cuda_time_ms(lambda: PK.bitpack_groups_var_plain(*ac32, ow), 3, 1)
-    wms = cuda_time_ms(lambda: PK.bitpack_groups_words(data, nbits, ends - nbits, ow), 3, 1)
+    ms = device_time(lambda: PK.bitpack_groups_var(*ac32, ow), 20)
+    pms = device_time(lambda: PK.bitpack_groups_var_plain(*ac32, ow), 3, 1)
+    wms = device_time(lambda: PK.bitpack_groups_words(data, nbits, ends - nbits, ow), 3, 1)
     log(f"  bitpack_groups_words on the same tokens (the encode's packer: "
         f"torch passes + compact_rows): {wms:.4f} ms [{card}]")
     p0 = ac32[2][0]
@@ -686,8 +676,10 @@ def main():
     # -- 4. the 8 MP encode through the public entry point ------------------
     wrappers, _ = KC.on_path_kernels()
 
+    off_path = (PK.bitpack_groups_var, PBK.probe_elementwise, PBK.probe_dot_i8)
+
     def reset_counts():
-        for wr in (*wrappers.values(), PK.bitpack_groups_var):
+        for wr in (*wrappers.values(), *off_path):
             wr.launches = 0
 
     reset_counts()
@@ -703,17 +695,15 @@ def main():
     for name in wrappers:
         if not rec[name]["launches"]:
             fail(f"{name}: no launch on the main path")
-    if PK.bitpack_groups_var.launches:
-        fail("bitpack_groups_var launched on the encode path")
+    if any(wr.launches for wr in off_path):
+        fail("a kernel off the encode path (bitpack_groups_var, the probe's) launched on it")
 
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        d = encode_image_device(img8, DIST, config=cfg)
-        walls.append(time.time() - t0)
-        if d != data_k:
-            fail("photo8mp: repeated encodes differ")
+    # Warm walls and the two programs' device times: utils/profiling's
+    # encode_report (a warm-up encode, then three timed ones).
+    d, report = encode_report(img8, DIST, repeats=3, config=cfg)
+    if d != data_k:
+        fail("photo8mp: encode_report's encodes differ from the first")
+    walls = report["times_s"]
     wall = statistics.median(walls)
 
     from jxl_tiny_tpu_torch.encoder import DeviceEncodeJob
@@ -735,12 +725,13 @@ def main():
     data_s, t_asm = synced_ms(job.result)
     if data_s != [data_k]:
         fail("photo8mp: staged job differs from encode_image_device")
-    prog_a = cuda_time_ms(lambda: job._run_a(job.cap), 3, 1)
-    prog_b = cuda_time_ms(job._dispatch_b, 3, 1)
     log(f"encode photo8mp ({w}x{h}, {mp:.2f} MP, d={DIST}, default configuration): "
         f"{len(data_k)} bytes, warm wall median of 3 {wall * 1e3:.1f} ms "
-        f"({walls}), {mp / wall:.2f} MP/s; program A {prog_a:.3f} ms, "
-        f"program B {prog_b:.3f} ms (CUDA events) [{card}]")
+        f"({walls}), {mp / wall:.2f} MP/s; program A {report['program_a_ms']:.3f} ms, "
+        f"program B {report['program_b_ms']:.3f} ms ({report['program_ms_are']}, CUDA "
+        f"events; host time to queue a call: A {report['program_a_queue_ms']:.3f} ms, B "
+        f"{report['program_b_queue_ms']:.3f} ms) [{card}]")
+    log("encode_report photo8mp " + json.dumps(report))
     log(f"stages photo8mp (host clock, synced): f32->f16 {t_conv:.1f} ms, "
         f"f16 upload {t_h2d:.1f} ms; job init (conversion + upload + tables + "
         f"program A) {t_init:.1f} ms; pack (totals/hists read, entropy codes, "
@@ -886,11 +877,12 @@ def main():
     if TE.RETRY_COUNT != retries0 or TE.RETRY_COUNT:
         fail(f"encode_images_device retried {TE.RETRY_COUNT - retries0} images")
     ws, wp = statistics.median(walls_s), statistics.median(walls_p)
-    prof = profiled(lambda: list(TE.encode_images_device(imgs4, DIST, config=cfg)))
+    prof = busy_share(lambda: list(TE.encode_images_device(imgs4, DIST, config=cfg)))
     log("pipelined photo8mp x4 under torch.profiler: " + (
         "no device time recorded" if prof is None else
-        f"wall {prof[0]:.1f} ms, device busy {prof[1]:.1f} ms ({100 * prof[1] / prof[0]:.1f}%, "
-        f"idle {100 - 100 * prof[1] / prof[0]:.1f}%); top kernels (name, ms, calls) {prof[2]}")
+        f"wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+        f"({100 * prof['busy_share']:.1f}%, idle {100 - 100 * prof['busy_share']:.1f}%); top "
+        f"kernels (name, ms, calls) {prof['top']}")
         + f" [{card}]")
     log(f"multi-image: pipelined photo8mp x4 (photo8mp, its flips, its 180-degree turn; "
         f"{mp4:.2f} MP, default configuration, depth 3): serial walls "
@@ -983,7 +975,7 @@ def main():
     sec_groups = [a[0].shape[0] for a in calls["copy_sections"]]
     if n_groups != 540 or max(sec_groups) <= 512:
         fail(f"the 8 MP batch ran {n_groups} groups, copy_sections at {sec_groups}")
-    held = hold_calls("photo8mp x4, 540 groups", calls, lambda fn: cuda_time_ms(fn, 5))
+    held = hold_calls("photo8mp x4, 540 groups", calls, lambda fn: device_time(fn, 5))
     errs = {name: h_["max_abs_err"] for name, h_ in held.items()}
     for name, err in errs.items():
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
@@ -1116,6 +1108,8 @@ def main():
 
     torch.cuda.empty_cache()
     verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts, wrappers)
+    torch.cuda.empty_cache()
+    debug_phase(img8, data_k, rec, card, dev, wrappers, args.trace_out)
 
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1138,6 +1132,7 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
     from jxl_tiny_tpu_torch.ops import pipeline as PL
     from jxl_tiny_tpu_torch.ops import pipeline_full as PF
     from jxl_tiny_tpu_torch.tools import kernel_check as KC
+    from jxl_tiny_tpu_torch.utils.profiling import StageTimer, device_time
 
     t_phase = time.time()
     on_path = ("aq_field", "estimate_partials")
@@ -1295,7 +1290,8 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
         if host_encode(img8) != host["float32"]:
             fail("host-packed photo8mp: repeated encodes differ")
         walls.append(time.perf_counter() - t0)
-    spent, restore = timed_stages({
+    timer = StageTimer()
+    restores = [timer.wrap(m_, n_, sync, label) for label, (m_, n_, sync) in {
         "upload": (TE, "upload_pixels", True),
         "analysis": (PF, "analyze_image_fast", True),
         "stream download": (TE, "host_arrays", False),
@@ -1303,21 +1299,23 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
         "histograms": (S, "histogram_sections", False),
         "codes": (TE, "build_entropy_code", False),
         "serialization": (S, "serialize_section", False),
-    })
+    }.items()]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         data = host_encode(img8)
         total = time.perf_counter() - t0
     finally:
-        restore()
+        for restore in restores:
+            restore()
     if data != host["float32"]:
         fail("host-packed photo8mp: the staged encode differs")
+    spent = dict(timer.stages)
     spent["assembly (group maps, headers, TOC, packing)"] = total - sum(spent.values())
     dim = TE.ImageDim(img8.shape[2], img8.shape[1])
     yb, xb = (torch.from_numpy(a).to(dev) for a in TE._valid_blocks(dim))
     up = TE.upload_pixels(img8, np.dtype(np.float32), dev)
-    a_ms = KC.cuda_time_ms(lambda: PF.analyze_image_fast(up, yb, xb, distp, 16384, tables),
+    a_ms = device_time(lambda: PF.analyze_image_fast(up, yb, xb, distp, 16384, tables),
                            3, 1)
     out = TE.host_arrays(PF.analyze_image_fast(up, yb, xb, distp, 16384, tables))
     nbytes = sum(v.nbytes for v in out.values())
@@ -1330,6 +1328,143 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
         + f", total {total * 1e3:.1f} ms [{card}]")
     log(f"verify: phase 7 took {time.time() - t_phase:.1f} s")
 
+
+
+def debug_phase(img8, data_k, rec, card, dev, wrappers, trace_out):
+    """Phase 8: debug mode, the exactness probe and its two kernels, and
+    encode_report (see the module docstring)."""
+    import gzip
+    import shutil
+
+    import torch
+
+    from jxl_tiny_tpu_torch import encoder as TE
+    from jxl_tiny_tpu_torch.common import EncoderConfig
+    from jxl_tiny_tpu_torch.io.pfm import read_pfm
+    from jxl_tiny_tpu_torch.ops import probe_kernels as PBK
+    from jxl_tiny_tpu_torch.tools import probe_op_exactness as PO
+    from jxl_tiny_tpu_torch.utils import debug_mode, encode_report, profile_trace
+    from jxl_tiny_tpu_torch.utils.profiling import device_time
+
+    t_phase = time.time()
+    probes = (PBK.probe_elementwise, PBK.probe_dot_i8)
+    counted = (*wrappers.values(), *probes)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # (a) Debug mode (NaN checks after each float stage of program A), on
+    # the kernels and, with kernels=False, on their plain versions (the
+    # interpret-mode counterpart): the bytes of the same encode outside it;
+    # every kernel of the path launched in the first, none in the second.
+    tiers = {"default": EncoderConfig(), "static": EncoderConfig(optimize_code=False)}
+    cases = [(n, t) for n in ("photo256", "gradient512", "odd131x77") for t in tiers]
+    for name, tier in cases + [("photo8mp", "default")]:
+        img = img8 if name == "photo8mp" else read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+
+        def encode(kernels=True):
+            return TE.encode_image_device(img, DIST, config=tiers[tier], kernels=kernels)
+
+        encode()  # warm
+        want, t_normal = walled(encode)
+        walls = {}
+        for kernels in (True, False):
+            for wr in counted:
+                wr.launches = 0
+            with debug_mode():
+                got, walls[kernels] = walled(lambda: encode(kernels))
+            launched = {k: wr.launches for k, wr in wrappers.items()}
+            if got != want:
+                fail(f"debug mode, {name} ({tier}, kernels={kernels}): {len(got)} B against "
+                     f"{len(want)} B outside it")
+            if (all(launched.values()) if kernels else any(launched.values())) != kernels:
+                fail(f"debug mode, {name} ({tier}, kernels={kernels}): launches {launched}")
+        if (name, tier) == ("photo8mp", "default") and want != data_k:
+            fail("debug mode, photo8mp: bytes differ from phase 4's encode")
+        log(f"debug: debug mode {name} ({tier}): {len(want)} bytes on the kernels and on their "
+            f"plain versions (kernels=False, no launch), equal to the encode outside it; no NaN; "
+            f"walls {walls[True]:.1f} ms (kernels), {walls[False]:.1f} ms (plain) against "
+            f"{t_normal:.1f} ms ({walls[True] / t_normal:.2f}x, {walls[False] / t_normal:.2f}x) "
+            f"[{card}]")
+
+    # (b) The exactness probe and its two kernels. The probe's run is this
+    # phase's path: counts set to 0 just before, read just after.
+    for wr in probes:
+        wr.launches = 0
+    cols = PO.probe(dev)
+    dot_vs_ref, dot_vs_plain = PO.probe_dot(dev)
+    probe_launches = {"probe_elementwise": PBK.probe_elementwise.launches,
+                      "probe_dot_i8": PBK.probe_dot_i8.launches}
+    for op, row in cols.items():
+        log(f"debug: probe {op} (share of {1 << 19} values differing, max ulp; columns against "
+            f"the float64 reference rounded once, kernel_vs_plain: the port-flag kernel against "
+            f"torch on the card): {json.dumps(row)} [{card}]")
+    inexact = [op for op in ("div", "sqrt", "mul_add", "recip")
+               if cols[op]["kernel_vs_plain"] != [0.0, 0]]
+    if inexact:
+        fail(f"probe_elementwise disagrees with its plain version on {inexact}")
+    if dot_vs_ref or dot_vs_plain:
+        fail(f"probe_dot_i8: {dot_vs_ref} elements differ from the int32 product, "
+             f"{dot_vs_plain} from the plain version")
+    log(f"debug: probe_dot_i8 [256,128] x [128,128] int8 -> int32: equal to the numpy int32 "
+        f"product and to its plain version; launches in the probe's run "
+        f"{json.dumps(probe_launches)}")
+
+    # Times at the probe's shapes (CUDA events): probe_elementwise on div
+    # over the 2^19 values (two inputs read, one output written), and
+    # probe_dot_i8 on the one-hot permutation.
+    x, y, _, q, perm = PO.probe_inputs(19)
+    a, b = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    err = compare("probe_elementwise (div, timed)", [PBK.probe_elementwise("div", a, b)],
+                  [PBK.probe_elementwise_plain("div", a, b)])
+    ms = device_time(lambda: PBK.probe_elementwise("div", a, b), 50)
+    pms = device_time(lambda: PBK.probe_elementwise_plain("div", a, b), 50)
+    lms = device_time(lambda: torch.div(a, b), 50)
+    b_ms, b_by = bound(3 * a.numel() * 4, a.numel())
+    rec["probe_elementwise"] = dict(
+        name="probe_elementwise", route="cuda", source="jxl_tiny_tpu_torch/csrc/probe.cu",
+        replaces="tools/probe_op_exactness.py:36", launches=probe_launches["probe_elementwise"],
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms)
+    qa, qb = torch.from_numpy(q).to(dev), torch.from_numpy(perm).to(dev)
+    err = compare("probe_dot_i8 (timed)", [PBK.probe_dot_i8(qa, qb)],
+                  [PBK.probe_dot_i8_plain(qa, qb)])
+    if not torch.equal(torch._int_mm(qa, qb), PBK.probe_dot_i8_plain(qa, qb)):
+        fail("probe_dot_i8: the torch._int_mm yardstick computes something else")
+    ms = device_time(lambda: PBK.probe_dot_i8(qa, qb), 50)
+    pms = device_time(lambda: PBK.probe_dot_i8_plain(qa, qb), 50)
+    lms = device_time(lambda: torch._int_mm(qa, qb), 50)
+    m_, k_, n_ = q.shape[0], q.shape[1], perm.shape[1]
+    t_bytes = (m_ * k_ + k_ * n_ + m_ * n_ * 4) / MEM_BYTES_PER_S * 1e3
+    t_ops = 2 * m_ * k_ * n_ / INT8_OPS_PER_S * 1e3
+    rec["probe_dot_i8"] = dict(
+        name="probe_dot_i8", route="cuda", source="jxl_tiny_tpu_torch/csrc/probe.cu",
+        replaces="tools/probe_op_exactness.py:152", launches=probe_launches["probe_dot_i8"],
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lms)
+    for k in ("probe_elementwise", "probe_dot_i8"):
+        r = rec[k]
+        log(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms ({'torch.div' if k == 'probe_elementwise' else 'torch._int_mm'}), "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) [{card}]")
+
+    # (c) With --trace-out, the Chrome trace of encode_report(photo8mp,
+    # repeats=1) lands there (gzipped); phase 4 printed its report.
+    if trace_out is not None:
+        os.makedirs(trace_out, exist_ok=True)
+        with profile_trace(os.path.join(HERE, "build", "trace_photo8mp")) as d:
+            data, _ = encode_report(img8, DIST, repeats=1)
+        if data != data_k:
+            fail("encode_report: photo8mp bytes differ from phase 4's encode")
+        dst = os.path.join(trace_out, "trace_photo8mp.json.gz")
+        with open(os.path.join(d, "trace.json"), "rb") as f, gzip.open(dst, "wb") as g:
+            shutil.copyfileobj(f, g)
+        log(f"debug: torch.profiler trace of encode_report(photo8mp, repeats=1): {dst} "
+            f"({os.path.getsize(dst)} bytes gzipped)")
+    log(f"debug: phase 8 took {time.time() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

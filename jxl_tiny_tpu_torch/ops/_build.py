@@ -10,6 +10,10 @@ torch's headers or ninja.
 
 `-fmad=false` is load-bearing: without it nvcc contracts a*b+c into FMA
 and the kernels stop matching their plain torch versions bit for bit.
+Every kernel of the encode is built with NVCC_FLAGS; a build may take other
+flags (`build_all(flags=...)`, `load(..., flags=...)`: the exactness probe
+builds csrc/probe.cu at nvcc's own float flags too), and lands in the
+directory of its own hash.
 """
 import ctypes
 import hashlib
@@ -46,8 +50,8 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_dir(flags=None) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None else flags).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -55,22 +59,26 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> dict:
-    """Compile every csrc/*.cu that is not built yet, in parallel.
+def build_all(flags=None, names=None) -> dict:
+    """Compile every csrc/*.cu (or those whose stem is in `names`) that is
+    not built yet with `flags` (default NVCC_FLAGS), in parallel.
 
     Returns {kernel source name: library path}. Raises with nvcc's output
     when a source fails to compile."""
-    out_dir = build_dir()
+    flags = NVCC_FLAGS if flags is None else flags
+    out_dir = build_dir(flags)
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     libs, procs = {}, []
     for src in _sources():
+        if names is not None and src.stem not in names:
+            continue
         lib = out_dir / f"lib{src.stem}.so"
         libs[src.stem] = lib
         if lib.exists():
             continue
         tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(src)]
         procs.append((src, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
@@ -86,15 +94,19 @@ def build_all() -> dict:
     return libs
 
 
-def load(name: str, bind) -> ctypes.CDLL:
-    """The library built from csrc/<name>.cu, built on first use; `bind`
-    sets its launchers' argtypes/restype once, right after loading."""
+def load(name: str, bind, flags=None) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu with `flags` (default
+    NVCC_FLAGS, which builds every source at first use), built on first
+    use; `bind` sets its launchers' argtypes/restype once, right after
+    loading."""
+    key = name if flags is None else (name, tuple(flags))
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build_all()[name]))
+        if key not in _libs:
+            path = build_all() if flags is None else build_all(flags, (name,))
+            lib = ctypes.CDLL(str(path[name]))
             bind(lib)
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]
 
 
 P, I = ctypes.c_void_p, ctypes.c_int  # launcher argument types

@@ -12,7 +12,9 @@ makes every cell a DCT8.
 `kernels=True` runs the CUDA kernels (ops/*_kernel.py, ops/pack_kernels)
 on CUDA tensors; `kernels=False` runs their plain torch versions instead,
 which is how chip_smoke.py checks the whole encode against them. On CPU
-tensors the kernel wrappers take the plain versions anyway.
+tensors the kernel wrappers take the plain versions anyway. In debug mode
+(utils/debug) NaN checks end the float stages (nan_check: nothing outside
+debug mode).
 
 Nothing here reads a value back to the host or copies host data to the
 card while the program is queued: the per-size group and DC-group
@@ -38,6 +40,7 @@ from .strategy_kernel import (
 )
 from .tokenize_kernel import tokenize_cells
 from ..tables import canonical_device, to_device
+from ..utils.debug import nan_check
 
 F32 = np.float32
 _EMIT_CHAN = (1, 0, 2)  # emission channel order Y, X, B
@@ -66,7 +69,9 @@ def extract_groups_device(image):
         batch = batch.to(torch.float32)
     img = F.pad(batch, (0, gw - w, 0, gh - h), mode="replicate")
     img = img.reshape(-1, 3, gh // 256, 256, gw // 256, 256)
-    return img.permute(0, 2, 4, 1, 3, 5).reshape(-1, 3, 256, 256).contiguous()
+    groups = img.permute(0, 2, 4, 1, 3, 5).reshape(-1, 3, 256, 256).contiguous()
+    nan_check("extract_groups", groups)
+    return groups
 
 
 @functools.lru_cache(maxsize=64)
@@ -196,6 +201,7 @@ def strategy_estimates(coef8, qf, masking, ytox, ytob, distance, tables,
     e8 = float(F32(3.0) * mul8) + float(mul8) * combine_partials(p8, args[6], 1)
     ev = float(mul16) * combine_partials(pv, args[7], 2)
     eh = float(mul16) * combine_partials(ph, args[8], 2)
+    nan_check("strategy_estimates", e8, ev, eh, args[1], args[2])
     return e8, ev, eh, args[1], args[2]
 
 
@@ -376,11 +382,14 @@ def analysis_front(groups, yb_valid, xb_valid, distp, tables, cfl=True, blocks=T
     g = groups.shape[0]
     dev = groups.device
     xyb = to_xyb(groups.to(torch.float32))
+    nan_check("to_xyb", xyb)
     qf, masking, raw_qf = adaptive_quant_field(
         xyb, distp.distance, distp.inv_scale, kernels
     )
+    nan_check("adaptive_quant_field", qf, masking)
     blocks8 = xyb.reshape(g, 3, 32, 8, 32, 8).permute(0, 1, 2, 4, 3, 5)
     coef8 = dct2d_8x8(blocks8, tables.dct8)
+    nan_check("dct2d_8x8", coef8)
     by_i = torch.arange(32, device=dev)[:, None]
     bx_i = torch.arange(32, device=dev)[None, :]
     valid = (by_i[None] < yb_valid[:, None, None]) & (bx_i[None] < xb_valid[:, None, None])

@@ -1,9 +1,9 @@
 """The kernel checks that chip_smoke.py and the mesh's rank functions
 (tools/multihost_dryrun.py) share: the on-path kernel wrappers and their
 plain versions, the exact comparison of their outputs, the recording of a
-run's kernel calls, the count of the encoder's program runs with the
-launches they imply, and the one device timer every kernel time is taken
-with."""
+run's kernel calls, and the count of the encoder's program runs with the
+launches they imply. Every kernel time is taken with
+utils/profiling.device_time."""
 import torch
 
 
@@ -61,24 +61,6 @@ def compare(outs_k, outs_p, nan_ok=False):
         bad += int((~same).sum())
         err = max(err, max_abs_err(k, p))
     return bad, err, nans
-
-
-def cuda_time_ms(fn, reps=5, warm=2):
-    """Device time of one call: CUDA events around `reps` calls queued behind
-    a spin kernel long enough (2 M cycles, ~1 ms, a call) that the host has
-    queued them all before the first starts, so that the host's call
-    overhead stays out of the time."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2_000_000 * reps)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def recorded(fn):

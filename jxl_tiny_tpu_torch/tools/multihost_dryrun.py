@@ -27,6 +27,7 @@ import time
 import numpy as np
 
 from . import kernel_check as KC
+from ..utils.profiling import device_time
 
 def free_port() -> int:
     with socket.socket() as s:
@@ -327,7 +328,7 @@ def shared_card_rank(mesh, image, out_dir, configs=("default",), record_ranks=()
         _write(out_dir, "recorded.bin", data)
     for r in record_ranks:  # one rank at a time on the card, the others waiting
         if mesh.rank == r:
-            held = KC.hold_calls(calls, time_ms=KC.cuda_time_ms)
+            held = KC.hold_calls(calls, time_ms=device_time)
             del calls
             _write(out_dir, f"kernels_rank{r}.json",
                    dict(held=held, launches=launches, programs=runs))
@@ -436,7 +437,7 @@ def card_mesh_rank(mesh, image, crops, out_dir):
         "gather0 words": (lambda: mesh.gather0(torch.zeros(words, dtype=i32, device=dev)),
                           words * 4),
     }
-    rep["collectives"] = {name: dict(ms=KC.cuda_time_ms(fn, reps=20), bytes_sent_a_rank=nb)
+    rep["collectives"] = {name: dict(ms=device_time(fn, reps=20), bytes_sent_a_rank=nb)
                           for name, (fn, nb) in calls.items()}
     del maps, sends, jobs
 
