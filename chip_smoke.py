@@ -70,7 +70,9 @@ Phases (any failure exits non-zero at once):
               card, codes and packing on the host), float32 and float16
               upload, every kernel call (aq_field, estimate_partials) held
               against its plain version, bytes equal to the plain versions'
-              host-packed encode, the cap retry logged; the device-packed
+              host-packed encode, the cap retry logged; gradient512 at cap
+              1000 (analyses at 1000, then FULL_CAP; bytes equal to the
+              uncapped call's); the device-packed
               and host-packed analyses of one float16 upload equal (maps,
               totals, token values); the numpy golden model's encode_image
               on this machine's host, compared group by group (at most a
@@ -90,9 +92,17 @@ Phases (any failure exits non-zero at once):
               walls of all three; the exactness probe (tools/probe_op_exactness) on the
               card, one line an op with each column's share of values off
               the float64 reference and max ulp, probe_elementwise at the
-              port's flags bit-equal to its plain version for div, sqrt,
-              recip and a*b+c, probe_dot_i8 equal to the int32 product, both
-              kernels timed at the probe's shapes; with --trace-out DIR,
+              port's flags bit-equal to its plain version for every op but
+              cbrt, probe_dot_i8 equal to the int32 product; both kernels
+              timed at the probe's shapes; then (tools/bench_probe's shapes)
+              probe_dot_i8 against its plain version, torch._int_mm and
+              numpy at the probe's pair, at [77,40] x [40,24] and at one
+              zig-zag chunk of photo8mp, [414720,128] x [128,128] (one-hot
+              and random full-range B), timed there; its SASS (the toolkit's
+              cuobjdump) must hold IMMA tensor-core instructions;
+              probe_elementwise against its plain version at [3,2160,3840]
+              (every op but cbrt), at a start one element in and at n % 4
+              != 0, div and cbrt timed there; with --trace-out DIR,
               the Chrome trace of encode_report(photo8mp) lands in DIR,
               gzipped. compute-sanitizer is not part of
               the run: it could not attach to the card it was tried on
@@ -114,7 +124,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 # Instructions csrc/strategy.cu issues a coefficient-channel value: ~22 in
 # the arithmetic of a warp item's 12 values a lane, ~10 for its loads,
 # butterfly and stores (cuobjdump -sass of the sm_90a build; see
@@ -1167,6 +1176,28 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
             f"the plain versions' host-packed encode; launches {json.dumps(launches)}; "
             f"cap retry {'ran (a group past 16,384 tokens)' if retry else 'not needed'}")
 
+    # The cap retry on the card: at cap 1000 gradient512's analysis runs at
+    # 1000, finds a group past it and runs again at FULL_CAP; the bytes are
+    # the uncapped call's.
+    grad = read_pfm(os.path.join(HERE, "testdata", "gradient512.pfm"))
+    caps, fast = [], PF.analyze_image_fast
+
+    def spy(image, yb_, xb_, distp_, cap, tables_, kernels=True):
+        caps.append(cap)
+        return fast(image, yb_, xb_, distp_, cap, tables_, kernels)
+
+    PF.analyze_image_fast = spy
+    try:
+        capped = host_encode(grad, cap=1000)
+    finally:
+        PF.analyze_image_fast = fast
+    uncapped = host_encode(grad)
+    if caps != [1000, PF.FULL_CAP] or capped != uncapped:
+        fail(f"host-packed gradient512 at cap 1000: analyses at caps {caps}, {len(capped)} B "
+             f"against {len(uncapped)} B uncapped")
+    log(f"verify: host-packed gradient512 at cap 1000: analyses at caps {caps} (the retry at "
+        f"FULL_CAP), {len(capped)} bytes, equal to the uncapped call's")
+
     # The device-packed and host-packed analyses of the same float16 upload
     # hold the same quantized image: equal maps, totals and token values
     # (the contexts differ: base-64 clusters against the full 1980).
@@ -1341,7 +1372,9 @@ def debug_phase(img8, data_k, rec, card, dev, wrappers, trace_out):
     from jxl_tiny_tpu_torch import encoder as TE
     from jxl_tiny_tpu_torch.common import EncoderConfig
     from jxl_tiny_tpu_torch.io.pfm import read_pfm
+    from jxl_tiny_tpu_torch.ops import _build
     from jxl_tiny_tpu_torch.ops import probe_kernels as PBK
+    from jxl_tiny_tpu_torch.tools import bench_probe as BP
     from jxl_tiny_tpu_torch.tools import probe_op_exactness as PO
     from jxl_tiny_tpu_torch.utils import debug_mode, encode_report, profile_trace
     from jxl_tiny_tpu_torch.utils.profiling import device_time
@@ -1403,8 +1436,7 @@ def debug_phase(img8, data_k, rec, card, dev, wrappers, trace_out):
         log(f"debug: probe {op} (share of {1 << 19} values differing, max ulp; columns against "
             f"the float64 reference rounded once, kernel_vs_plain: the port-flag kernel against "
             f"torch on the card): {json.dumps(row)} [{card}]")
-    inexact = [op for op in ("div", "sqrt", "mul_add", "recip")
-               if cols[op]["kernel_vs_plain"] != [0.0, 0]]
+    inexact = [op for op in PO.EQUAL_ON_CARD if cols[op]["kernel_vs_plain"] != [0.0, 0]]
     if inexact:
         fail(f"probe_elementwise disagrees with its plain version on {inexact}")
     if dot_vs_ref or dot_vs_plain:
@@ -1437,19 +1469,101 @@ def debug_phase(img8, data_k, rec, card, dev, wrappers, trace_out):
     ms = device_time(lambda: PBK.probe_dot_i8(qa, qb), 50)
     pms = device_time(lambda: PBK.probe_dot_i8_plain(qa, qb), 50)
     lms = device_time(lambda: torch._int_mm(qa, qb), 50)
-    m_, k_, n_ = q.shape[0], q.shape[1], perm.shape[1]
-    t_bytes = (m_ * k_ + k_ * n_ + m_ * n_ * 4) / MEM_BYTES_PER_S * 1e3
-    t_ops = 2 * m_ * k_ * n_ / INT8_OPS_PER_S * 1e3
+    b_ms, b_by = BP.dot_bound(*qa.shape, qb.shape[1])
     rec["probe_dot_i8"] = dict(
         name="probe_dot_i8", route="cuda", source="jxl_tiny_tpu_torch/csrc/probe.cu",
         replaces="tools/probe_op_exactness.py:152", launches=probe_launches["probe_dot_i8"],
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lms)
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms)
     for k in ("probe_elementwise", "probe_dot_i8"):
         r = rec[k]
         log(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms ({'torch.div' if k == 'probe_elementwise' else 'torch._int_mm'}), "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) [{card}]")
+
+    # (b') Both kernels at photo8mp's shapes (tools/bench_probe). First the
+    # SASS of the port-flag build: probe_dot_i8's kernels must hold integer
+    # tensor-core instructions (IMMA, mma.sync's opcode).
+    lib_path = _build.build_dir() / "libprobe.so"
+    try:
+        imma = BP.tensor_core_counts(lib_path)
+    except (RuntimeError, OSError) as e:
+        fail(f"probe_dot_i8 SASS: {e}")
+    imma = {fn.rsplit("probe_dot_i8_kernel", 1)[1]: c for fn, c in imma.items()}
+    if not all(imma.values()):
+        fail(f"probe_dot_i8: a kernel without IMMA instructions in {lib_path}: {imma}")
+    log(f"debug: probe_dot_i8 SASS (cuobjdump -sass): IMMA instructions in each of its "
+        f"{len(imma)} instantiations {json.dumps(imma)}")
+
+    # probe_dot_i8 against its plain version, torch._int_mm and numpy's
+    # exact product (float64 BLAS: every sum is an integer below 2^53).
+    dots = BP.dot_inputs(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dots["odd [77,40]x[40,24] random"] = tuple(
+        torch.randint(-128, 128, shp, generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+        for shp in ((77, 40), (40, 24)))
+    for label, (qa, qb) in dots.items():
+        got = PBK.probe_dot_i8(qa, qb)
+        want = PBK.probe_dot_i8_plain(qa, qb)
+        np_want = (qa.cpu().numpy().astype(np.float64) @ qb.cpu().numpy().astype(np.float64))
+        same = {"plain": torch.equal(got, want), "torch._int_mm": torch.equal(
+            got, torch._int_mm(qa, qb)), "numpy": bool(np.array_equal(
+                got.cpu().numpy(), np_want.astype(np.int32)))}
+        if not all(same.values()):
+            fail(f"probe_dot_i8 {label}: equal to {same}")
+        log(f"debug: probe_dot_i8 {label}: equal to its plain version, torch._int_mm and the "
+            f"numpy product (sums in [{int(want.min())}, {int(want.max())}])")
+    qa, qb = dots[next(k for k in dots if k.startswith("zig-zag") and "one-hot" in k)]
+    b_ms, b_by = BP.dot_bound(*qa.shape, qb.shape[1])
+    rec["probe_dot_i8"]["large"] = dict(
+        shape=f"[{qa.shape[0]},{qa.shape[1]}] x [{qb.shape[0]},{qb.shape[1]}] int8 (one-hot B)",
+        ms=device_time(lambda: PBK.probe_dot_i8(qa, qb), 20),
+        plain_ms=device_time(lambda: PBK.probe_dot_i8_plain(qa, qb), 2),
+        library_ms=device_time(lambda: torch._int_mm(qa, qb), 20), bound_ms=b_ms, bound_by=b_by)
+    del dots, qa, qb, got, want, np_want
+
+    # probe_elementwise at [3,2160,3840] (x light levels in (0, 1], y in
+    # [0.5, 2), z in [-1, 1)), at a start one element in (a misaligned,
+    # contiguous view) and at n % 4 == 3: every op but cbrt bit-equal to
+    # its plain version; div and cbrt timed at the full shape.
+    xyb = [torch.rand(BP.XYB_SHAPE, generator=g, device=dev).clamp_min_(1e-6),
+           torch.rand(BP.XYB_SHAPE, generator=g, device=dev) * 1.5 + 0.5,
+           torch.rand(BP.XYB_SHAPE, generator=g, device=dev) * 2 - 1]
+    views = {"[3,2160,3840]": xyb, "one element in": [t.view(-1)[1:] for t in xyb],
+             "n % 4 == 3": [t.view(-1)[:(1 << 19) + 3] for t in xyb]}
+    for label, ins in views.items():
+        bad = {}
+        for op in PO.EQUAL_ON_CARD:
+            n_in = PBK.OPS[op][1]
+            got = PBK.probe_elementwise(op, *ins[:n_in])
+            want = PBK.probe_elementwise_plain(op, *ins[:n_in])
+            diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            if diff:
+                bad[op] = diff
+        if bad:
+            fail(f"probe_elementwise {label}: values differing from the plain version {bad}")
+        log(f"debug: probe_elementwise {label} ({ins[0].numel()} values, data_ptr % 16 = "
+            f"{ins[0].data_ptr() % 16}): {', '.join(PO.EQUAL_ON_CARD)} bit-equal to their "
+            f"plain versions")
+    large = {}
+    for op, lib_fn in (("div", torch.div), ("cbrt", None)):
+        ins = xyb[:PBK.OPS[op][1]]
+        b_ms, b_by = BP.elementwise_bound(ins[0].numel(), len(ins))
+        large[op] = dict(
+            shape=f"{op} {list(BP.XYB_SHAPE)} f32",
+            ms=device_time(lambda: PBK.probe_elementwise(op, *ins), 20),
+            plain_ms=device_time(lambda: PBK.probe_elementwise_plain(op, *ins), 20),
+            library_ms=device_time(lambda: lib_fn(*ins), 20) if lib_fn else None,
+            bound_ms=b_ms, bound_by=b_by)
+    rec["probe_elementwise"]["large"] = large["div"]
+    rec["probe_elementwise"]["large_cbrt"] = large["cbrt"]
+    del xyb, views, ins
+    for k, key in (("probe_dot_i8", "large"), ("probe_elementwise", "large"),
+                   ("probe_elementwise", "large_cbrt")):
+        r = rec[k][key]
+        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+        log(f"  {k} {r['shape']}: kernel {r['ms']:.5f} ms ({r['bound_ms'] / r['ms']:.1%} of "
+            f"its bound), plain {r['plain_ms']:.5f} ms, library {lib_ms}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
 
     # (c) With --trace-out, the Chrome trace of encode_report(photo8mp,
     # repeats=1) lands there (gzipped); phase 4 printed its report.

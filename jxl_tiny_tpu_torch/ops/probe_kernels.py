@@ -1,11 +1,16 @@
 """The exactness probe's kernels (csrc/probe.cu) and their plain torch
 versions: one float op applied elementwise (`probe_elementwise`, the
-counterpart of tools/probe_op_exactness.py:pallas_elementwise) and an int8
-product with int32 sums (`probe_dot_i8`, the counterpart of its kern_i8).
+counterpart of tools/probe_op_exactness.py:pallas_elementwise: the op a
+template instantiation, float4 accesses where the pointers allow them) and an
+int8 product with int32 sums (`probe_dot_i8`, the counterpart of its kern_i8:
+mma.sync int8 tensor-core instructions, any shape).
 
 No encode calls them; tools/probe_op_exactness.py and chip_smoke.py's phase
-8 do. `probe_elementwise` can take the library built at another set of nvcc
-float flags (FLAG_SETS) to show what the port's flags change.
+8 do, at the probe's shapes (2^19 floats, [256,128] x [128,128] int8) and at
+photo8mp's (the [3,2160,3840] XYB planes; one permutation chunk of the JAX
+quantizer's int8 zig-zag over the image, [414720,128] x [128,128]).
+`probe_elementwise` can take the library built at another set of nvcc float
+flags (FLAG_SETS) to show what the port's flags change.
 """
 import torch
 
@@ -60,10 +65,18 @@ def probe_elementwise_plain(op, a, b=None, c=None):
 
 
 def probe_dot_i8_plain(a, b):
-    """[M, K] int8 x [K, N] int8 -> [M, N] int32, exact (broadcast
-    products summed in int32: torch has no integer matmul on the card)."""
-    return (a.to(torch.int32)[:, :, None] * b.to(torch.int32)[None]).sum(
-        dim=1, dtype=torch.int32)
+    """[M, K] int8 x [K, N] int8 -> [M, N] int32, exact: int32 sums over K
+    in order, 2^16 rows of A at a time (no [M, K, N] intermediate)."""
+    rows = 1 << 16
+    m, k = a.shape
+    out = torch.zeros((m, b.shape[1]), dtype=torch.int32, device=a.device)
+    b32 = b.to(torch.int32)
+    for r in range(0, m, rows):
+        a32 = a[r:r + rows].to(torch.int32)
+        acc = out[r:r + rows]
+        for t in range(k):
+            acc.addcmul_(a32[:, t:t + 1], b32[t])
+    return out
 
 
 def _bind(lib):
@@ -81,8 +94,10 @@ class _Elementwise:
         self.launches = 0
 
     def __call__(self, op, a, b=None, c=None, flags="port"):
-        """op (a key of OPS) on float32 tensors of one shape; flags: a key
-        of FLAG_SETS, the build of csrc/probe.cu to launch."""
+        """op (a key of OPS) on contiguous float32 tensors of one shape
+        (float4 accesses where every pointer is 16-byte aligned, scalar
+        ones otherwise); flags: a key of FLAG_SETS, the build of
+        csrc/probe.cu to launch."""
         code, n_in = OPS[op]
         ins = [a, b, c][:n_in]
         if not a.is_cuda:
@@ -106,9 +121,14 @@ class _DotI8:
         self.launches = 0
 
     def __call__(self, a, b):
-        """[M, K] int8 x [K, N] int8 -> [M, N] int32."""
+        """[M, K] int8 x [K, N] int8 -> [M, N] int32 on the int8 tensor
+        cores, exact; contiguous inputs of any M, K, N >= 1 (the kernel
+        zero-pads the tails)."""
         if not a.is_cuda:
             return probe_dot_i8_plain(a, b)
+        if a.dim() != 2 or b.dim() != 2 or min(*a.shape, b.shape[1]) < 1:
+            raise ValueError(f"probe_dot_i8: expected [M, K] x [K, N] with M, K, N >= 1, got "
+                             f"{tuple(a.shape)} x {tuple(b.shape)}")
         m, k = a.shape
         n = b.shape[1]
         require(a, torch.int8, (m, k), "probe_dot_i8 a")

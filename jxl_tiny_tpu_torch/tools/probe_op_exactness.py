@@ -38,6 +38,9 @@ import torch
 from ..ops import probe_kernels as PK
 
 LOG2E = np.float32(1.442695041)
+# The ops whose probe_elementwise at the port's flags equals torch on the
+# card bit for bit: every op but cbrt (cbrtf against torch's pow(x, 1/3)).
+EQUAL_ON_CARD = tuple(op for op in PK.OPS if op != "cbrt")
 
 
 def probe_inputs(log2_size=19):
