@@ -38,8 +38,9 @@ Phases (any failure exits non-zero at once):
               is printed on one line; the same for the one-pass static tier;
               then bitpack_groups_var driven as program B's AC packer
               (its own launch count); then the fixed-8x8 configuration on
-              small images, and photo256 / gradient512 sizes at both
-              configurations against the JAX package's CPU references
+              small images, and photo256, gradient512, odd131x77 and tiny64
+              at both configurations byte for byte against the JAX
+              package's CPU streams (sha256)
   5. multi-image
               program A and program B (both tiers) queued under
               torch.cuda.set_sync_debug_mode("error"): no host sync; four 8
@@ -108,9 +109,20 @@ Phases (any failure exits non-zero at once):
               the run: it could not attach to the card it was tried on
               (PERF.md); `python -m jxl_tiny_tpu_torch.utils.debug` is the
               program to run under it where it can
+  9. configs  the shapes of BASELINE.md's configs 3-5 (tools/bench_configs
+              builds the inputs): the 8192x7680 u8 panorama (960 groups in
+              16 DC groups) through encode_image_device, and 64 u8 tiles of
+              1024x1024 (1,024 groups) through encode_batch_device; each
+              kernel once a program, every kernel call held against its
+              plain version and timed at these shapes (one kernel's calls
+              at a time), the bytes equal to the kernels=False encodes, each
+              tile's bytes equal to its single encode; photo8mp at d = 0.5
+              and 2.0 equal to its kernels=False encodes; the phase's
+              duration
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX or of the JAX package.
 """
+import hashlib
 import json
 import os
 import statistics
@@ -130,12 +142,26 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # tools/bench_strategy_bitpack.py --sass).
 STRATEGY_OPS_PER_VALUE = 32
 DIST = 1.0
-# Sizes of the JAX package's encode_image_device(img, 1.0, upload_dtype=None)
-# on the CPU (XLA:CPU, Pallas in interpret mode), at the default
-# configuration and with EncoderConfig(optimize_block_sizes=False); the
-# port's CPU path reproduces them byte for byte (tests/test_torch_encode.py).
-JAX_CPU_SIZES = {"photo256": 3426, "gradient512": 11680}
-JAX_CPU_SIZES_8X8 = {"photo256": 3931, "gradient512": 13484}
+# Sizes and sha256 digests of the JAX package's encode_image_device(img,
+# 1.0, upload_dtype=None) on the CPU (XLA:CPU, Pallas in interpret mode), at
+# the default configuration and with EncoderConfig(optimize_block_sizes=
+# False). The port's CPU path reproduces every one byte for byte, and
+# tests/test_torch_encode.py ties each to a live JAX encode; the card must
+# give the same bytes.
+JAX_CPU_DIGESTS = {
+    "default": {
+        "photo256": (3426, "1d3aa9748f24055fe6aa1524973567a045ff705d45c90b4d69a93ac0be05d442"),
+        "gradient512": (11680, "29dc2da822d6528147ca8488a60e8e1c9d92f4c965687de2f9d2fab0c12d3a41"),
+        "odd131x77": (1061, "c8bdcd4e024107973d5ea129c348a7701a33654420d1f4c7a57c992ec0152a39"),
+        "tiny64": (394, "2b81a6a8bb900176fc4fdf16b619b78b69ebe3dca90b48a45c26d15152a429af"),
+    },
+    "fixed 8x8": {
+        "photo256": (3931, "15e0fd1b3196a1b2ac9e1806f19e4f6f62c313e482fae08413b75742ca801460"),
+        "gradient512": (13484, "fa5ef170fc9f8dea09b1f380f41db1239e8dfcd31c60ef14730d052e77d8336c"),
+        "odd131x77": (1165, "6cab02bb9daf47eb4e13ecc0263f741cf13cc034d9042a5d4b239364f0ac8bcf"),
+        "tiny64": (444, "f2e33af05bc2e86e2296360930c0ec115bfe809e0fb03cf0ed7b225e4a908e96"),
+    },
+}
 # The static tier may cost this much over the two-pass size on photographs
 # (the bound of the JAX package's tests/test_config_tiers.py).
 STATIC_OVERHEAD = 1.06
@@ -790,17 +816,20 @@ def main(argv=None):
         f"equal to bitpack_groups_words")
     del v_data, v_nbits, v_ends, v_words, v32
 
-    # Small images: both configurations against the JAX package's CPU
-    # sizes, and the fixed-8x8 path through kernels and plain versions.
-    for label, config, sizes in (("default", cfg, JAX_CPU_SIZES),
-                                 ("fixed 8x8", cfg_8x8, JAX_CPU_SIZES_8X8)):
-        for name, ref in sizes.items():
+    # Small images: both configurations byte for byte against the JAX
+    # package's CPU streams (their sha256), and the fixed-8x8 path through
+    # kernels and plain versions.
+    for label, config in (("default", cfg), ("fixed 8x8", cfg_8x8)):
+        for name, (size, digest) in JAX_CPU_DIGESTS[label].items():
             img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
-            n_b = len(encode_image_device(img, DIST, config=config))
-            dev_pct = 100.0 * (n_b - ref) / ref
-            log(f"encode {name} ({label}): {n_b} bytes vs JAX-CPU {ref} ({dev_pct:+.3f}%)")
-            if abs(n_b - ref) > 0.005 * ref:
-                fail(f"{name} ({label}): size {n_b} not within 0.5% of {ref}")
+            got = encode_image_device(img, DIST, config=config)
+            sha = hashlib.sha256(got).hexdigest()
+            log(f"encode {name} ({label}): {len(got)} bytes, sha256 {sha[:16]}... against "
+                f"the JAX package's CPU stream: {len(got) - size:+d} bytes, "
+                f"{'equal' if sha == digest else 'DIFFERENT'}")
+            if sha != digest:
+                fail(f"{name} ({label}): the card's {len(got)} B differ from the JAX "
+                     f"package's CPU stream ({size} B)")
     crop = np.ascontiguousarray(img8[:, 512:1536, 1024:2048])
     reset_counts()
     c_k = encode_image_device(crop, DIST, config=cfg_8x8)
@@ -1119,6 +1148,8 @@ def main(argv=None):
     verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts, wrappers)
     torch.cuda.empty_cache()
     debug_phase(img8, data_k, rec, card, dev, wrappers, args.trace_out)
+    torch.cuda.empty_cache()
+    configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expect_launches)
 
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1579,6 +1610,117 @@ def debug_phase(img8, data_k, rec, card, dev, wrappers, trace_out):
         log(f"debug: torch.profiler trace of encode_report(photo8mp, repeats=1): {dst} "
             f"({os.path.getsize(dst)} bytes gzipped)")
     log(f"debug: phase 8 took {time.time() - t_phase:.1f} s")
+
+
+def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expect_launches):
+    """Phase 9: the panorama, the 64-tile batch and the distance sweep (see
+    the module docstring)."""
+    import torch
+
+    from jxl_tiny_tpu_torch import encoder as TE
+    from jxl_tiny_tpu_torch.common import ImageDim
+    from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
+    from jxl_tiny_tpu_torch.tools import bench_configs as BC
+    from jxl_tiny_tpu_torch.tools import kernel_check as KC
+    from jxl_tiny_tpu_torch.utils.profiling import device_time
+
+    t_phase = time.time()
+    progs = ("analyze_batch_packed", "pack_batch_sections")
+    photo8 = linear_to_srgb_u8(img8)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def counted(label, fn):
+        """fn() with each kernel's launches (counts set to 0 just before,
+        read just after) once a program."""
+        runs, restore = KC.count_programs(TE, progs)
+        reset_counts()
+        try:
+            out, wall = timed(fn)
+        finally:
+            restore()
+        launches = {k: wr.launches for k, wr in wrappers.items()}
+        expect_launches(label, launches, runs["analyze_batch_packed"],
+                        runs["pack_batch_sections"])
+        return out, wall, launches, runs
+
+    def held(label, fn, want, launches, key, groups):
+        """Every kernel call of fn() recorded, then held against its plain
+        version and timed (CUDA events, 3 calls each) one kernel at a time,
+        each kernel's recorded inputs freed before the next."""
+        got, calls, _ = KC.recorded(fn)
+        if got != want:
+            fail(f"{label}: the recorded encode differs")
+        n_groups = calls["aq_field"][0][0].shape[0]
+        sec = [a[0].shape[0] for a in calls["copy_sections"]]
+        if n_groups != groups or max(sec) != groups:
+            fail(f"{label}: {n_groups} groups, copy_sections at {sec}, not {groups}")
+        errs, ms = {}, {}
+        for name in list(calls):
+            h_ = hold_calls(label, {name: calls.pop(name)},
+                            lambda fn_: device_time(fn_, 3))[name]
+            torch.cuda.empty_cache()
+            errs[name], ms[name] = h_["max_abs_err"], sum(h_["ms"])
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], h_["max_abs_err"])
+            rec[name][key] = dict(ms=ms[name], launches=launches[name], calls=h_["calls"])
+        log(f"configs: {label}: every kernel call equal to its plain version (max_abs_err "
+            f"{json.dumps(errs)}); copy_sections at {sec} sections; ms of the encode's "
+            f"launches of each kernel (CUDA events) "
+            f"{json.dumps({k: round(v, 4) for k, v in ms.items()})} [{card}]")
+
+    # (a) The 63 MP panorama, u8 sRGB, one image.
+    pan8 = BC.panorama(photo8)
+    dim = ImageDim(pan8.shape[2], pan8.shape[1])
+    label = f"panorama {pan8.shape[2]}x{pan8.shape[1]} u8"
+    if (dim.num_groups, dim.num_dc_groups) != (960, 16):
+        fail(f"{label}: {dim.num_groups} groups in {dim.num_dc_groups} DC groups")
+    TE.encode_image_device(pan8, DIST)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    pan, wall, launches, runs = counted(label, lambda: TE.encode_image_device(pan8, DIST))
+    peak = torch.cuda.max_memory_allocated()
+    held(label, lambda: TE.encode_image_device(pan8, DIST), pan, launches, "groups_960", 960)
+    if TE.encode_image_device(pan8, DIST, kernels=False) != pan:
+        fail(f"{label}: the kernels' encode differs from the plain versions'")
+    mp = pan8.shape[1] * pan8.shape[2] / 1e6
+    log(f"configs: {label} ({mp:.2f} MP, {dim.num_groups} groups in {dim.num_dc_groups} DC "
+        f"groups): {len(pan)} bytes, equal to the plain versions' encode; wall {wall:.3f} s "
+        f"({mp / wall:.2f} MP/s, one warm encode); max_memory_allocated {peak} B; programs "
+        f"{json.dumps(runs)}; launches {json.dumps(launches)} [{card}]")
+    del pan8, pan
+    torch.cuda.empty_cache()
+
+    # (b) 64 tiles of 1024x1024, u8 sRGB, as one batch: 1,024 groups.
+    batch = BC.tiles(photo8)
+    label = f"batch of {len(batch)} tiles {batch.shape[3]}x{batch.shape[2]} u8"
+    singles = [TE.encode_image_device(t, DIST) for t in batch]
+    TE.encode_batch_device(batch, DIST)  # warm
+    got, wall, launches, runs = counted(label, lambda: TE.encode_batch_device(batch, DIST))
+    if got != singles:
+        fail(f"{label}: bytes differ from the single encodes")
+    held(label, lambda: TE.encode_batch_device(batch, DIST), singles, launches,
+         "groups_1024", 1024)
+    if TE.encode_batch_device(batch, DIST, kernels=False) != singles:
+        fail(f"{label}: the plain versions' batch differs from the single encodes")
+    mp = batch.shape[0] * batch.shape[2] * batch.shape[3] / 1e6
+    log(f"configs: {label} ({mp:.2f} MP, 1024 groups in {len(batch)} DC groups): "
+        f"{sum(map(len, got))} bytes, each tile equal to its single encode and to the plain "
+        f"versions' batch; wall {wall:.3f} s ({mp / wall:.2f} MP/s, one warm batch); "
+        f"programs {json.dumps(runs)}; launches {json.dumps(launches)} [{card}]")
+    del batch, singles, got
+    torch.cuda.empty_cache()
+
+    # (c) The distance sweep's other two points on photo8mp.
+    for d in (0.5, 2.0):
+        k = TE.encode_image_device(img8, d)
+        if TE.encode_image_device(img8, d, kernels=False) != k:
+            fail(f"photo8mp d={d}: the kernels' encode differs from the plain versions'")
+        log(f"configs: photo8mp d={d}: {len(k)} bytes, equal to the plain versions' encode")
+    log(f"configs: phase 9 took {time.time() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

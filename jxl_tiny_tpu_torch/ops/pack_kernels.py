@@ -267,6 +267,15 @@ def word_rows(data, nbits, pos, prefix_valid=True):
     if cap % W:
         raise ValueError("bitpack_groups_words: cap must be a multiple of 128")
     dev = data.device
+    if prefix_valid:
+        # An AC token whose cluster's code has one symbol takes no bits, so
+        # empty tokens may sit inside the stream. The scan below needs the
+        # tokens with bits as one contiguous prefix: move them to the front
+        # in order (the identity when no token is empty). The JAX package
+        # scans them in place, and its words then lose bits. One left-pack
+        # moves all three fields: data < 2^28, nbits <= 28, pos < 2^30.
+        both = left_pack(data | (nbits << 28) | (pos << 33), nbits > 0)
+        data, nbits, pos = both & ((1 << 28) - 1), (both >> 28) & 31, both >> 33
     valid = nbits > 0
     sh = pos & 31
     lo = torch.where(valid, (data << sh) & M32, 0)
@@ -311,8 +320,10 @@ def bitpack_groups_words(data, nbits, pos, ow, prefix_valid=True, kernels=True):
     beyond the section's words).
 
     The rows of words that word_rows finds are placed into the dense word
-    stream by the compact_rows kernel; prefix_valid as in the JAX package
-    (False: zero width tokens may interleave, as in the DC layout)."""
+    stream by the compact_rows kernel. prefix_valid=True (AC streams):
+    the stream ends in a tail of empty tokens, and empty tokens inside it
+    are moved out of the way first (see word_rows); False: empty tokens
+    may interleave anywhere, as in the DC layout."""
     words_rows, counts, spill_v = word_rows(data, nbits, pos, prefix_valid)
     g, dev = data.shape[0], data.device
     words, wtotals = compact_stream(words_rows, counts, ow, kernels)

@@ -18,10 +18,14 @@ fixed 8x8 blocks (EncoderConfig(optimize_block_sizes=False)).
     tests/test_config_tiers.py decode above 30 dB; the one-pass static
     tier's candidate picks equal the host argmin and its bytes equal the
     JAX package's
+(f) the sha256 digests chip_smoke.py holds the card's small-image encodes
+    to are those of live JAX encodes and of the port's CPU encodes
 
 Float stages (ingest, XYB, DCT) are compared at rtol 1e-5 / atol 1e-6:
 torch's cbrt/exp/log and XLA's round differently, and XLA contracts a*b+c
 into FMA."""
+import hashlib
+import importlib.util
 import os
 
 import numpy as np
@@ -247,21 +251,59 @@ def _assert_decodes_like(img, got, want, name):
     assert got == want, f"{name}: sizes {len(got)} vs {len(want)}"
 
 
+@pytest.fixture(scope="module")
+def port_bytes():
+    """The port's CPU encode of an image at a configuration, made once."""
+    cache = {}
+
+    def get(name, img, config):
+        key = (name, config is CFG)
+        if key not in cache:
+            cache[key] = TE.encode_image_device(img, 1.0, upload_dtype=None, config=config,
+                                                device="cpu")
+        return cache[key]
+
+    return get
+
+
 @pytest.mark.parametrize("name", IMAGES)
-def test_port_encode_decodes_like_jax(ref, name):
+def test_port_encode_decodes_like_jax(ref, port_bytes, name):
     """(c) The whole port encode from pixels: PSNR within 0.1 dB of the JAX
     encode's, size within 0.5%, and (today) identical bytes."""
     img, want, _ = ref(name)
-    got = TE.encode_image_device(img, 1.0, upload_dtype=None, config=CFG, device="cpu")
-    _assert_decodes_like(img, got, want, name)
+    _assert_decodes_like(img, port_bytes(name, img, CFG), want, name)
 
 
 @pytest.mark.parametrize("name", IMAGES)
-def test_port_encode_default_decodes_like_jax(ref_default, name):
+def test_port_encode_default_decodes_like_jax(ref_default, port_bytes, name):
     """(c) at the default configuration, EncoderConfig()."""
     img, want, _ = ref_default(name)
-    got = TE.encode_image_device(img, 1.0, upload_dtype=None, device="cpu")
-    _assert_decodes_like(img, got, want, name)
+    _assert_decodes_like(img, port_bytes(name, img, None), want, name)
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+DIGESTS = _chip_smoke().JAX_CPU_DIGESTS
+
+
+@pytest.mark.parametrize("label,name", [(label, name) for label in DIGESTS
+                                        for name in DIGESTS[label]])
+def test_chip_smoke_digests(ref, ref_default, port_bytes, label, name):
+    """chip_smoke.py holds the card's encodes of the small images to the
+    sha256 of the JAX package's CPU streams: each digest (and size) is that
+    of a live JAX encode, and of the port's CPU encode."""
+    default = label == "default"
+    img, want, _ = (ref_default if default else ref)(name)
+    size, digest = DIGESTS[label][name]
+    assert (len(want), hashlib.sha256(want).hexdigest()) == (size, digest)
+    got = port_bytes(name, img, None if default else CFG)
+    assert hashlib.sha256(got).hexdigest() == digest
 
 
 def test_photo8mp_crop_matches_jax(testdata):

@@ -523,17 +523,36 @@ def _interleaved_bits(seed=9, g=2, cap=2048):
 
 @pytest.mark.parametrize("prefix_valid", [True, False])
 def test_bitpack_groups_words_matches_jax(jx, prefix_valid):
-    """Word packing in both modes: AC streams (valid tokens form a prefix)
-    and the DC layout (zero-width entries interleave). Words exact."""
+    """Word packing in both modes: AC streams (tokens end in an empty tail)
+    and the DC layout (zero-width entries interleave). Words exact.
+
+    The AC stream's code lacks a few of its token values, so groups 0 and 1
+    each hold one empty token before their last token with bits. The port
+    packs every bit there (equal to the scatter-add reference); the JAX
+    package scans the empty token in place and loses bits from its word on
+    (tests/test_torch_empty_tokens.py), so the two are equal up to that
+    word."""
     d, n, pos = _ac_bits() if prefix_valid else _interleaved_bits()
     ow = 8192
     assert int((n.sum(1).max() + 31) // 32) <= PK.var_safe_words(ow)
-    want = jx.PK.bitpack_groups_words(
+    want = np.asarray(jx.PK.bitpack_groups_words(
         jx.jnp.asarray(d.numpy().astype(np.uint32)),
         jx.jnp.asarray(n.numpy().astype(np.int32)),
-        jx.jnp.asarray(pos.numpy().astype(np.int32)), ow, prefix_valid=prefix_valid)
-    got = PK.bitpack_groups_words(d, n, pos, ow, prefix_valid=prefix_valid)
-    assert np.array_equal(u32(got), np.asarray(want))
+        jx.jnp.asarray(pos.numpy().astype(np.int32)), ow, prefix_valid=prefix_valid))
+    got = u32(PK.bitpack_groups_words(d, n, pos, ow, prefix_valid=prefix_valid))
+    if not prefix_valid:
+        assert np.array_equal(got, want)
+        return
+    assert np.array_equal(got, u32(PK.bitpack_groups_var_plain(d, n, pos, ow)))
+    inside = []
+    for g in range(len(got)):
+        bits = (n[g] > 0).numpy()
+        last = np.flatnonzero(bits).max() if bits.any() else -1
+        empty = np.flatnonzero(~bits[:last + 1])
+        w = int(pos[g, empty[0]]) // 32 if len(empty) else ow
+        inside.append(len(empty))
+        assert np.array_equal(got[g, :w], want[g, :w]), g
+    assert inside == [1, 1, 0]
 
 
 def test_dc_layout_and_hist_match_jax(jx):

@@ -306,9 +306,10 @@ def test_raw_qf_and_cfl_maps_equal(jx, port):
         assert np.array_equal(p[k].astype(np.int64), out[k].astype(np.int64)), k
 
 
-def test_strategy_flips_sit_at_ties(jx, port, monkeypatch):
-    _, dec = jx
-    quads = _flipped_quads(jx, port)
+def _strategy_ties(dec, monkeypatch):
+    """[G, 16, 16] bool each: quads where two of the costs JAX compares lie
+    within rtol RTOL, and quads holding an estimate value within TIE of a
+    rounding boundary; and the estimate values (_estimate_vals)."""
     e8, ev, eh = dec["e8"], dec["ev"], dec["eh"]
     e00, e01, e10, e11 = e8[:, 0::2, 0::2], e8[:, 0::2, 1::2], e8[:, 1::2, 0::2], e8[:, 1::2, 1::2]
     ev_l, ev_r, eh_t, eh_b = ev[:, :, 0::2], ev[:, :, 1::2], eh[:, 0::2], eh[:, 1::2]
@@ -316,7 +317,7 @@ def test_strategy_flips_sit_at_ties(jx, port, monkeypatch):
     cost8x16 = np.minimum(eh_t, e00 + e01) + np.minimum(eh_b, e10 + e11)
     pairs = ((cost16x8, cost8x16), (ev_l, e00 + e10), (ev_r, e01 + e11),
              (eh_t, e00 + e01), (eh_b, e10 + e11))
-    cost_tie = np.zeros_like(quads)
+    cost_tie = np.zeros(cost16x8.shape, bool)
     for a, b in pairs:
         cost_tie |= np.abs(a - b) <= RTOL * np.maximum(np.abs(a), np.abs(b))
     vals = _estimate_vals(dec, monkeypatch)
@@ -326,6 +327,13 @@ def test_strategy_flips_sit_at_ties(jx, port, monkeypatch):
         np.minimum(v8.reshape(g, 16, 2, 16, 2).min(axis=(2, 4)),
                    vv.reshape(g, 16, 16, 2).min(axis=3)),
         vh.reshape(g, 16, 2, 16).min(axis=2)) <= TIE
+    return cost_tie, val_tie, vals
+
+
+def test_strategy_flips_sit_at_ties(jx, port, monkeypatch):
+    _, dec = jx
+    quads = _flipped_quads(jx, port)
+    cost_tie, val_tie, vals = _strategy_ties(dec, monkeypatch)
     unexplained = quads & ~(cost_tie | val_tie)
     print(f"quads whose strategy differs: {int(quads.sum())} (at {np.argwhere(quads).tolist()}); "
           f"costs within rtol {RTOL}: {int((quads & cost_tie).sum())}; an estimate value "
