@@ -40,7 +40,9 @@ Phases (any failure exits non-zero at once):
               (its own launch count); then the fixed-8x8 configuration on
               small images, and photo256, gradient512, odd131x77 and tiny64
               at both configurations byte for byte against the JAX
-              package's CPU streams (sha256)
+              package's CPU streams (sha256), and as u8 sRGB against the
+              port's CPU streams (U8_CPU_DIGESTS); photo8mp as u8 sRGB
+              against its digest (PHOTO8MP_U8)
   5. multi-image
               program A and program B (both tiers) queued under
               torch.cuda.set_sync_debug_mode("error"): no host sync; four 8
@@ -137,7 +139,7 @@ Phases (any failure exits non-zero at once):
               (device-resident median of 4, the float16 and u8 end-to-end
               encodes equal to kernels=False, program ms, busy share, peak
               memory, the stream and the batch), printed on a line of its
-              own; the float16 bytes must equal phase 4's
+              own; the float16 and u8 bytes must equal phase 4's
 The line before the last is the kernels' JSON record (rows 1-8 with a
 "checked" entry: the checked build's and the normal build's ms at phase
 8's calls); the last line is the result JSON. Imports nothing of JAX or of
@@ -183,6 +185,32 @@ JAX_CPU_DIGESTS = {
         "tiny64": (444, "f2e33af05bc2e86e2296360930c0ec115bfe809e0fb03cf0ed7b225e4a908e96"),
     },
 }
+# The same images as 8-bit sRGB (io/color.linear_to_srgb_u8), linearized
+# through constants.SRGB_U8_TO_LINEAR: the port's CPU streams, sizes and
+# sha256 (tests/test_torch_u8_ingest.py ties each to a live CPU encode). Each
+# equals the JAX package's u8 encode on the CPU but gradient512 at the
+# default configuration (JAX 11,725 B): two AC values of one 16x8 transform
+# round the other way at a near-tie of JAX's own inputs (-1.5000039).
+U8_CPU_DIGESTS = {
+    "default": {
+        "photo256": (3442, "c4923b8a6fea340e8356fdd9ad772a77d088115e2fade27db189a3b67c2d6a22"),
+        "gradient512": (11724, "ab14126de2d16ef25d99f6e399a6292c895a6e8e2201e86eb8bacb26a1a6e4e8"),
+        "odd131x77": (1074, "ffec1d6fc8fab332d8cefdd02077f2b46afaa62dfea7be1f2ca446a266975197"),
+        "tiny64": (648, "46c856ec810225b736a26a100b2cbba51066eccb7ca6b667124954f408b6e661"),
+    },
+    "fixed 8x8": {
+        "photo256": (3875, "4c5ddd0304f1977d869e4b76ebb9028db8a28da2e5183310a29bda5fa6fe077e"),
+        "gradient512": (13415, "67f614564f56daebccbdf681e8564c088867be14c924870146a07560662a5021"),
+        "odd131x77": (1171, "dfde58dcc1ea248f4fcf80882cd95f22f37d5d521a08c526eddbc3377f4ca98c"),
+        "tiny64": (437, "2a77efc39539d725446c7ec6c16ae8a88f9a3164d8c9f90d02c57a016a5a8817"),
+    },
+}
+# photo8mp as 8-bit sRGB at the default configuration: the port's CPU
+# stream (size, sha256), which the card reproduces, and what
+# tools/device_diff.py found between the two devices.
+PHOTO8MP_U8 = (384020, "c4b9c1b734fb6dae7a8e2a027d53009c6aed39b173bb0bb55ab64ee31225f3d2",
+               "the CPU's stream; tools/device_diff.py: no decision differs, only the AQ "
+               "tail's float32 log2 / exp2 (qf, 28% of its values)")
 # The static tier may cost this much over the two-pass size on photographs
 # (the bound of the JAX package's tests/test_config_tiers.py).
 STATIC_OVERHEAD = 1.06
@@ -289,6 +317,7 @@ def main(argv=None):
     from jxl_tiny_tpu_torch.entropy.entropy_write import (
         build_ac_device_code, build_dc_device_code,
     )
+    from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
     from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import aq_kernel as AQ
     from jxl_tiny_tpu_torch.ops import dc_kernels as DK
@@ -697,6 +726,25 @@ def main(argv=None):
     log(f"program A stages photo8mp (CUDA events, ms): "
         f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}; sum "
         f"{sum(stage_ms.values()):.3f} ms [{card}]")
+    # The u8 sRGB ingest: the table gather against the float32 formula it
+    # replaced (six elementwise kernels), on photo8mp as u8; the bound reads
+    # 1 B and writes 4 B a pixel of the padded groups.
+    up8 = torch.from_numpy(linear_to_srgb_u8(img8)).to(dev)
+
+    def formula():
+        x = up8.to(torch.float32) * float(np.float32(1.0 / 255.0))
+        lin = torch.exp(2.4 * torch.log(torch.clamp_min(
+            (x + float(np.float32(0.055))) * float(np.float32(1.0 / 1.055)), 1e-7)))
+        return torch.where(x <= float(np.float32(0.04045)),
+                           x * float(np.float32(1.0 / 12.92)), lin)
+
+    gather_ms = device_time(lambda: PL.extract_groups_device(up8), 3, 1)
+    formula_ms = device_time(formula, 3, 1)
+    ingest_bound = bound(up8.numel() + 4 * groups.numel(), 0)[0]
+    log(f"u8 ingest photo8mp (CUDA events, ms): extract_groups_device (table gather + "
+        f"tiling) {gather_ms:.4f}; the float32 formula alone {formula_ms:.4f}; bound "
+        f"{ingest_bound:.4f} (bytes) [{card}]")
+    del up8
     # Where dc_layout_from_maps' device time goes, kernel by kernel.
     prof = busy_share(dict(stage_fns)["dc_layout_from_maps (+ dc_hist)"])
     log("dc_layout_from_maps under torch.profiler: " + (
@@ -839,19 +887,35 @@ def main(argv=None):
     del v_data, v_nbits, v_ends, v_words, v32
 
     # Small images: both configurations byte for byte against the JAX
-    # package's CPU streams (their sha256), and the fixed-8x8 path through
-    # kernels and plain versions.
+    # package's CPU streams (their sha256), as linear float and as u8 sRGB
+    # (against the port's CPU streams); photo8mp as u8 sRGB against its CPU
+    # stream; and the fixed-8x8 path through kernels and plain versions.
+    t_gate = time.time()
     for label, config in (("default", cfg), ("fixed 8x8", cfg_8x8)):
-        for name, (size, digest) in JAX_CPU_DIGESTS[label].items():
-            img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
-            got = encode_image_device(img, DIST, config=config)
-            sha = hashlib.sha256(got).hexdigest()
-            log(f"encode {name} ({label}): {len(got)} bytes, sha256 {sha[:16]}... against "
-                f"the JAX package's CPU stream: {len(got) - size:+d} bytes, "
-                f"{'equal' if sha == digest else 'DIFFERENT'}")
-            if sha != digest:
-                fail(f"{name} ({label}): the card's {len(got)} B differ from the JAX "
-                     f"package's CPU stream ({size} B)")
+        for upload, digests, what in (("float", JAX_CPU_DIGESTS, "the JAX package's"),
+                                      ("u8", U8_CPU_DIGESTS, "the port's")):
+            for name, (size, digest) in digests[label].items():
+                img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+                if upload == "u8":
+                    img = linear_to_srgb_u8(img)
+                got = encode_image_device(img, DIST, config=config)
+                sha = hashlib.sha256(got).hexdigest()
+                log(f"encode {name} ({label}, {upload}): {len(got)} bytes, sha256 "
+                    f"{sha[:16]}... against {what} CPU stream: {len(got) - size:+d} bytes, "
+                    f"{'equal' if sha == digest else 'DIFFERENT'}")
+                if sha != digest:
+                    fail(f"{name} ({label}, {upload}): the card's {len(got)} B differ from "
+                         f"{what} CPU stream ({size} B)")
+    img8_u8 = linear_to_srgb_u8(img8)
+    data_u8 = encode_image_device(img8_u8, DIST, config=cfg)
+    sha_u8 = hashlib.sha256(data_u8).hexdigest()
+    size, digest, tie = PHOTO8MP_U8
+    log(f"encode photo8mp (default, u8): {len(data_u8)} bytes, sha256 {sha_u8} against "
+        f"{size} B {digest[:16]}...: {'equal' if sha_u8 == digest else 'DIFFERENT'} ({tie})")
+    if sha_u8 != digest:
+        fail(f"photo8mp (u8): the card's {len(data_u8)} B differ from its digest ({size} B)")
+    log(f"digest gates: 16 small-image encodes and photo8mp as u8 took "
+        f"{time.time() - t_gate:.1f} s")
     crop = np.ascontiguousarray(img8[:, 512:1536, 1024:2048])
     reset_counts()
     c_k = encode_image_device(crop, DIST, config=cfg_8x8)
@@ -865,7 +929,6 @@ def main(argv=None):
 
     # -- 5. multi-image ----------------------------------------------------
     from jxl_tiny_tpu_torch import encoder as TE
-    from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
 
     # (a) Program A and program B queue without a host sync, in both tiers.
     # A fault is reported with its traceback and fails the run after the
@@ -1183,9 +1246,11 @@ def main(argv=None):
         line = BN.measure(BN.load_image(), DIST, device=dev)
     except RuntimeError as e:
         fail(f"bench: {e}")
-    f16 = line["detail"]["e2e_f16"]
+    f16, u8 = line["detail"]["e2e_f16"], line["detail"]["e2e_u8"]
     if f16["sha256"] != hashlib.sha256(data_k).hexdigest():
         fail(f"bench: the float16 encode ({f16['bytes']} B) differs from phase 4's")
+    if u8["sha256"] != sha_u8:
+        fail(f"bench: the u8 encode ({u8['bytes']} B) differs from phase 4's")
     log("bench: " + json.dumps(line))
     log(f"bench: phase 10 took {time.time() - t0:.1f} s")
 

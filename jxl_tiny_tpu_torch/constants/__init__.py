@@ -44,6 +44,14 @@ OPSIN_MATRIX = np.array(
 OPSIN_BIAS = np.float32(0.0037930732552754493)
 NEG_BIAS_CBRT = np.float32(-0.15595420054)
 
+# --- 8-bit sRGB ingest (IEC 61966-2-1 EOTF) ---
+# Linear value of each u8 sample, [256] f32: the JAX package's
+# ops/pipeline_jax.extract_groups_device on XLA:CPU, copied bit for bit
+# (its exp(2.4 * log(.)) is no correctly rounded pow, so the formula cannot
+# rebuild it; tests/test_torch_u8_ingest.py regenerates and compares it).
+SRGB_U8_TO_LINEAR = np.load(
+    os.path.join(os.path.dirname(__file__), "srgb_u8.npz"))["srgb_u8_to_linear"]
+
 # --- DC quantization (reference: encoder/quant_weights.h:22-32) ---
 INV_DC_QUANT = np.array([4096.0, 512.0, 256.0], dtype=np.float32)  # X, Y, B
 DC_QUANT = (1.0 / INV_DC_QUANT).astype(np.float32)

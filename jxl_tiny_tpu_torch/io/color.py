@@ -16,7 +16,9 @@ def linear_to_srgb_u8(img: np.ndarray) -> np.ndarray:
 
 
 def srgb_u8_to_linear(u8: np.ndarray) -> np.ndarray:
-    """Numpy twin of the device linearization (for tests)."""
+    """Numpy twin of the IEC 61966-2-1 EOTF, for tests: the encoder reads
+    constants.SRGB_U8_TO_LINEAR (the JAX package's values), which lie
+    within 1e-5 of it."""
     x = np.asarray(u8, np.float32) / 255.0
     return np.where(
         x <= 0.04045, x / 12.92, np.power((x + 0.055) / 1.055, 2.4)

@@ -227,6 +227,13 @@ def adaptive_quant_field(xyb, distance, inv_scale, kernels=True):
     else:
         vec, color = aq_constants(distance)
         val, gamma_bs, masking = aq_field_plain(xyb, vec, color)
+    qf, raw_qf = aq_tail(val, gamma_bs, distance, inv_scale)
+    return qf, masking, raw_qf
+
+
+def aq_tail(val, gamma_bs, distance, inv_scale):
+    """The log2/exp2 tail on the kernel's [G,32,32] outputs -> (qf,
+    raw_qf)."""
     scale = F32(0.8294 / distance)
     val = val + float(F32(-0.15526878023684174 * 0.693147180559945)) * torch.log2(
         gamma_bs * float(F32(1.0 / 64))
@@ -238,4 +245,4 @@ def adaptive_quant_field(xyb, distance, inv_scale, kernels=True):
     raw_qf = torch.clamp(
         (qf * float(F32(inv_scale)) + 0.5).to(torch.int32), 1, 255
     )
-    return qf, masking, raw_qf
+    return qf, raw_qf

@@ -18,9 +18,10 @@ debug mode).
 
 Nothing here reads a value back to the host or copies host data to the
 card while the program is queued: the per-size group and DC-group
-geometry is made once (group_valid_blocks, dc_geometry) and the constants
-live in `tables`, so the host can queue the next image's work while the
-card runs this one's.
+geometry is made once (group_valid_blocks, dc_geometry), the u8
+linearization table once a device (_srgb_lut) and the constants live in
+`tables`, so the host can queue the next image's work while the card runs
+this one's.
 """
 import functools
 
@@ -46,25 +47,30 @@ F32 = np.float32
 _EMIT_CHAN = (1, 0, 2)  # emission channel order Y, X, B
 
 
+@functools.lru_cache(maxsize=None)
+def _srgb_lut(device):
+    """constants.SRGB_U8_TO_LINEAR on a canonical device, made once
+    (read-only)."""
+    return to_device(C.SRGB_U8_TO_LINEAR, device)
+
+
 def extract_groups_device(image):
     """[3, H, W] -> [G, 3, 256, 256] f32 edge-replicated group tiles
     (CopyAndPadImage, enc_frame.cc:597-617); [N, 3, H, W] -> [N*G, 3, 256,
     256], each image's groups in turn.
 
-    uint8 input is sRGB-encoded and linearized here (IEC 61966-2-1 EOTF);
-    float16 / float32 input is linear and converted to float32."""
+    uint8 input is sRGB-encoded and linearized here through the JAX
+    package's own 256-entry table (constants.SRGB_U8_TO_LINEAR), one gather
+    on every device; float16 / float32 input is linear and converted to
+    float32."""
     h, w = image.shape[-2:]
     batch = image.reshape(-1, 3, h, w)
     gh = div_ceil(h, 256) * 256
     gw = div_ceil(w, 256) * 256
     if batch.dtype == torch.uint8:
-        x = batch.to(torch.float32) * float(F32(1.0 / 255.0))
-        lin = torch.exp(
-            2.4 * torch.log(
-                torch.clamp_min((x + float(F32(0.055))) * float(F32(1.0 / 1.055)), 1e-7)
-            )
-        )
-        batch = torch.where(x <= float(F32(0.04045)), x * float(F32(1.0 / 12.92)), lin)
+        idx = batch.reshape(-1).to(torch.int32)
+        lut = _srgb_lut(canonical_device(batch.device))
+        batch = lut.index_select(0, idx).reshape(batch.shape)
     else:
         batch = batch.to(torch.float32)
     img = F.pad(batch, (0, gw - w, 0, gh - h), mode="replicate")

@@ -25,7 +25,8 @@ decoder; config 5 the peak device memory of one encode
 (torch.cuda.max_memory_allocated). Every row is stamped with the date and
 the device (on the card: its name and power limit, as nvidia-smi prints
 them). --streams DIR writes the config 3 and config 5 codestreams with the
-pixels they were encoded from (the u8 samples linearized) as .pfm files,
+pixels they were encoded from (the u8 samples linearized through the
+encoder's own table, constants.SRGB_U8_TO_LINEAR) as .pfm files,
 for tools/psnr_file.py.
 
 Each mode merges its rows into --out (default: bench_configs_h100.json
@@ -176,9 +177,10 @@ def measure(device=None, small=None, photo=None, n_tiles=TILES, tile=TILE,
     sources (see the module docstring)."""
     import torch
 
+    from .. import constants as C
     from .. import encoder as TE
     from ..common import ImageDim
-    from ..io.color import linear_to_srgb_u8, srgb_u8_to_linear
+    from ..io.color import linear_to_srgb_u8
     from ..io.pfm import write_pfm
     from ..transfer import resolve_device
     from ..utils.profiling import card_name
@@ -241,7 +243,7 @@ def measure(device=None, small=None, photo=None, n_tiles=TILES, tile=TILE,
         for name, data, u8 in pairs:
             with open(os.path.join(streams, f"{name}.jxl"), "wb") as f:
                 f.write(data)
-            write_pfm(os.path.join(streams, f"{name}.pfm"), srgb_u8_to_linear(u8))
+            write_pfm(os.path.join(streams, f"{name}.pfm"), C.SRGB_U8_TO_LINEAR[u8])
     return rows, out
 
 

@@ -23,15 +23,22 @@ from its device-path program A, the port's from its own):
 JAX's float inputs are recomputed stage by stage on the groups that differ
 (test_torch_neartie._jax_decisions, on JAX's own extracted groups). With
 the float16 upload they give JAX's device-path decisions exactly. With the
-8-bit upload the linearized pixels come from another XLA compilation (and
-differ from the port's in the last bits: torch's pow against XLA's), and
-JAX's two computations themselves disagree on one strategy quad and one
-quant_dc value; the test holds those to JAX's own ties too.
+8-bit upload the stage-by-stage groups come from JAX's eager
+extract_groups_device, whose values the port copies (constants.
+SRGB_U8_TO_LINEAR), so the port's pixels equal them bit for bit; JAX's
+device-path program linearizes inside its own compilation, which rounds
+some of the 256 values otherwise (a jit of extract_groups_device alone, at
+this shape, 46 of them), and JAX's two computations themselves disagree
+on one strategy quad and one quant_dc value; the test holds those to JAX's
+own ties too.
 
 Measured (the port and JAX on the CPU): float16 378,440 B against
 378,438 B, four quant_dc values at ties and two AC values at the zero
-threshold in one group; uint8 384,021 B against 384,019 B, three strategy
-quads and five quant_dc values at ties, one B value following its Y."""
+threshold in one group; uint8 384,020 B (the card's stream too) against
+384,019 B, three strategy quads (groups 6, 11 and 95) and five quant_dc
+values at ties (301.49997, 188.50002, 275.49997, -3.5, 296.50003), one B
+value following its Y, and two AC values at the zero threshold (group 88,
+0.5740002)."""
 import os
 
 import jax.numpy as jnp
