@@ -43,6 +43,24 @@ Phases (any failure exits non-zero at once):
               package's CPU streams (sha256), and as u8 sRGB against the
               port's CPU streams (U8_CPU_DIGESTS); photo8mp as u8 sRGB
               against its digest (PHOTO8MP_U8)
+  4b. graphs  the compiled programs (ops/programs, the counterpart of
+              jax.jit): the cache cleared, then photo8mp as float16 (default
+              and static tier) and as u8 sRGB, each eager
+              (ops/programs.eager()), then a first call (eager by rule),
+              the call that captures and two replays: bytes equal to phase
+              4's, each wrapper's launches equal to the eager run's and
+              once a program, first calls, captures and replays counted;
+              one more replay under torch.profiler, whose kernels counted
+              by name must equal the wrappers' counts; the 16 small-image
+              encodes as first calls, captures and replays against their
+              digests; the depth-3 stream of four 8 MP images (one graph a
+              program) and the batch of eight crops as replays against
+              their eager encodes; six u8 crops of six sizes, eager and as
+              first calls (nothing captured), captures and replays, each
+              pass timed; eager against replay: the programs' device ms
+              and host queueing (encode_report), the e2e float16 and u8
+              walls, the device-resident A+B and its busy share; each key's
+              first call ms, capture ms and pool bytes; the cache cleared
   5. multi-image
               program A and program B (both tiers) queued under
               torch.cuda.set_sync_debug_mode("error"): no host sync; four 8
@@ -134,17 +152,23 @@ Phases (any failure exits non-zero at once):
               tile's bytes equal to its single encode; the panorama again
               inside debug_mode() (checked kernels), bytes equal and no
               fault; photo8mp at d = 0.5 and 2.0 equal to its kernels=False
-              encodes; the phase's duration
+              encodes; the counted runs are replays of captured programs
+              (the references, kernels=False, run eagerly), and the
+              captured programs are cleared after each part; the phase's
+              duration
  10. bench    jxl_tiny_tpu_torch.bench.measure on photo8mp: its JSON line
               (device-resident median of 4, the float16 and u8 end-to-end
               encodes equal to kernels=False, program ms, busy share, peak
-              memory, the stream and the batch), printed on a line of its
-              own; the float16 and u8 bytes must equal phase 4's
+              memory, the stream and the batch; each figure as graph
+              replays and, under detail["eager"], eager), printed on a line
+              of its own; the float16 and u8 bytes of both modes must equal
+              phase 4's
 The line before the last is the kernels' JSON record (rows 1-8 with a
 "checked" entry: the checked build's and the normal build's ms at phase
 8's calls); the last line is the result JSON. Imports nothing of JAX or of
 the JAX package.
 """
+import contextlib
 import hashlib
 import json
 import os
@@ -927,6 +951,10 @@ def main(argv=None):
     log(f"encode photo8mp crop 1024x1024 (fixed 8x8): {len(c_k)} bytes, equal to "
         f"the plain-version encode on the card; launches {json.dumps(launches_8x8)}")
 
+    # -- 4b. graphs: the compiled programs (ops/programs) --------------------
+    graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts)
+    torch.cuda.empty_cache()
+
     # -- 5. multi-image ----------------------------------------------------
     from jxl_tiny_tpu_torch import encoder as TE
 
@@ -1246,11 +1274,16 @@ def main(argv=None):
         line = BN.measure(BN.load_image(), DIST, device=dev)
     except RuntimeError as e:
         fail(f"bench: {e}")
-    f16, u8 = line["detail"]["e2e_f16"], line["detail"]["e2e_u8"]
-    if f16["sha256"] != hashlib.sha256(data_k).hexdigest():
-        fail(f"bench: the float16 encode ({f16['bytes']} B) differs from phase 4's")
-    if u8["sha256"] != sha_u8:
-        fail(f"bench: the u8 encode ({u8['bytes']} B) differs from phase 4's")
+    for mode in (line["detail"], line["detail"]["eager"]):
+        f16, u8 = mode["e2e_f16"], mode["e2e_u8"]
+        if f16["sha256"] != hashlib.sha256(data_k).hexdigest():
+            fail(f"bench: the float16 encode ({f16['bytes']} B, {mode['programs_run_as']}) "
+                 f"differs from phase 4's")
+        if u8["sha256"] != sha_u8:
+            fail(f"bench: the u8 encode ({u8['bytes']} B, {mode['programs_run_as']}) differs "
+                 f"from phase 4's")
+    if line["detail"]["programs_run_as"] != "graph replays":
+        fail(f"bench: the default encodes ran as {line['detail']['programs_run_as']}")
     log("bench: " + json.dumps(line))
     log(f"bench: phase 10 took {time.time() - t0:.1f} s")
 
@@ -1258,6 +1291,231 @@ def main(argv=None):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts):
+    """Phase 4b: the compiled programs (ops/programs), see the module
+    docstring. The reference encodes run inside programs.eager()."""
+    import torch
+
+    from jxl_tiny_tpu_torch import bench as BN
+    from jxl_tiny_tpu_torch import encoder as TE
+    from jxl_tiny_tpu_torch.common import EncoderConfig
+    from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
+    from jxl_tiny_tpu_torch.io.pfm import read_pfm
+    from jxl_tiny_tpu_torch.ops import programs as PR
+    from jxl_tiny_tpu_torch.tools import kernel_check as KC
+    from jxl_tiny_tpu_torch.utils.profiling import busy_share, encode_report
+
+    t_phase = time.time()
+    cfg, cfg_8x8 = EncoderConfig(), EncoderConfig(optimize_block_sizes=False)
+    cfg_static = EncoderConfig(optimize_code=False)
+    progs = ("analyze_batch_packed", "pack_batch_sections", "analyze_pack_batch_static")
+    calls = ("eager", "captures", "replays")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def run(label, fn, static=False, expect=None, blocks=True):
+        """fn() with its launches (counts set to 0 just before, read just
+        after), held to once a program run (eager calls and replays; no
+        estimate_partials without the block-size search); the cache's
+        first calls (eager), captures and replays during it; expect: "first"
+        (a first call and no capture; a program whose key an earlier call
+        shares replays), "capture" (at least one capture), "replay"
+        (replays only) or "eager" (no cache)."""
+        runs, restore = KC.count_programs(TE, progs)
+        before = PR.stats()
+        reset_counts()
+        try:
+            out, wall = timed(fn)
+        finally:
+            restore()
+        after = PR.stats()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        c = {k: after[k] - before[k] for k in calls}
+        a = runs["analyze_pack_batch_static"] if static else runs["analyze_batch_packed"]
+        b = runs["analyze_pack_batch_static"] if static else runs["pack_batch_sections"]
+        want = KC.expected_launches(a, b)
+        if not blocks:
+            want["estimate_partials"] = 0
+        if not a or launches != want:
+            fail(f"graphs: {label}: launches {launches} are not once a program ({runs})")
+        due = {"first": not c["eager"] or c["captures"],
+               "capture": not c["captures"],
+               "replay": c["eager"] or c["captures"] or not c["replays"],
+               "eager": any(c.values())}
+        if due.get(expect, False):
+            fail(f"graphs: {label}: {json.dumps(c)} where {expect} was due")
+        return out, wall, launches, dict(runs=runs, **c)
+
+    # (a) photo8mp: eager, then the first call (eager by rule), the capture
+    # and two replays, each equal to phase 4's bytes with the eager
+    # launches; then one more replay traced, its kernels counted by name.
+    PR.clear_programs()
+    img8_u8 = linear_to_srgb_u8(img8)
+    for label, img, config, want in (("default, float16", img8, cfg, data_k),
+                                      ("static, float16", img8, cfg_static, data_st),
+                                      ("default, u8", img8_u8, cfg, data_u8)):
+        static = not config.optimize_code
+
+        def encode():
+            return TE.encode_image_device(img, DIST, config=config)
+
+        with PR.eager():
+            got, t_eager, l_eager, _ = run(f"photo8mp ({label}, eager)", encode, static, "eager")
+        if got != want:
+            fail(f"graphs: photo8mp ({label}): the eager encode differs from phase 4's")
+        walls, counts = [], []
+        for call in ("first", "capture", "replay", "replay"):
+            got, wall, launches, c = run(f"photo8mp ({label}, {call})", encode, static, call)
+            if got != want or launches != l_eager:
+                fail(f"graphs: photo8mp ({label}, {call}): {len(got)} B against phase 4's "
+                     f"{len(want)} B; launches {launches} against eager {l_eager}")
+            walls.append(round(wall * 1e3, 1))
+            counts.append("/".join(str(c[k]) for k in calls))
+        before = PR.stats()
+        reset_counts()
+        got, traced = KC.traced_launches(encode)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if PR.stats()["replays"] == before["replays"] or got != want or traced != launches:
+            fail(f"graphs: photo8mp ({label}): a traced replay ran kernels {traced} where "
+                 f"the wrappers counted {launches}")
+        log(f"graphs: photo8mp ({label}): {len(want)} bytes, sha256 "
+            f"{hashlib.sha256(want).hexdigest()[:16]}..., equal to phase 4's eager encode on "
+            f"the first call, the capture and two replays; launches equal the eager run's "
+            f"{json.dumps(l_eager)}, and a traced replay's kernels (torch.profiler, by name) "
+            f"equal the counts; calls (first calls/captures/replays) {counts}; walls eager "
+            f"{t_eager * 1e3:.1f} ms, first call, capture, replay, replay {walls} ms [{card}]")
+
+    # (b) The small images' digests: first calls, captures and replays.
+    t0, n = time.time(), 0
+    for label, config in (("default", cfg), ("fixed 8x8", cfg_8x8)):
+        for upload, digests in (("float", JAX_CPU_DIGESTS), ("u8", U8_CPU_DIGESTS)):
+            for name, (size, digest) in digests[label].items():
+                img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+                if upload == "u8":
+                    img = linear_to_srgb_u8(img)
+                for call in ("first", "capture", "replay"):
+                    got, _, _, c = run(f"{name} ({label}, {upload}, {call})",
+                                       lambda: TE.encode_image_device(img, DIST, config=config),
+                                       expect=call, blocks=config.optimize_block_sizes)
+                    if hashlib.sha256(got).hexdigest() != digest:
+                        fail(f"graphs: {name} ({label}, {upload}, {call}): {len(got)} B differ "
+                             f"from the digest ({size} B)")
+                    n += 1
+    log(f"graphs: the 16 small-image encodes of phase 4, each as a first call, a capture and "
+        f"a replay: every sha256 equal to its digest ({n} encodes, {time.time() - t0:.1f} s)")
+
+    # (c) The depth-3 stream and the batch of eight crops, as replays.
+    imgs4 = BN.stream_images(img8)
+    with PR.eager():
+        serial = [TE.encode_image_device(im, DIST, config=cfg) for im in imgs4]
+    if serial[0] != data_k:
+        fail("graphs: the eager serial encode of photo8mp differs from phase 4's")
+    piped, t_piped, launches, c = run("stream of 4 (replays)", lambda: list(
+        TE.encode_images_device(imgs4, DIST, config=cfg)), expect="replay")
+    if piped != serial:
+        fail("graphs: the depth-3 stream differs from the eager serial encodes")
+    log(f"graphs: stream of photo8mp x4 at depth 3 on one graph a program: bytes equal to the "
+        f"eager serial encodes ({c['replays']} replays, 0 captures); launches "
+        f"{json.dumps(launches)}, programs {json.dumps(c['runs'])}; wall {t_piped * 1e3:.1f} "
+        f"ms [{card}]")
+    batch = BN.crops(img8)
+    with PR.eager():
+        want = TE.encode_batch_device(batch, DIST, config=cfg)
+    first = [TE.encode_batch_device(batch, DIST, config=cfg) for _ in range(2)]
+    got, t_batch, launches, c = run("batch of 8 crops (replays)", lambda: TE.encode_batch_device(
+        batch, DIST, config=cfg), expect="replay")
+    if first != [want, want] or got != want:
+        fail("graphs: the batch of 8 crops differs from its eager encode")
+    log(f"graphs: batch of 8 crops 1024x1024: bytes equal to the eager batch as a first call, "
+        f"a capture and a replay ({c['replays']} replays); launches {json.dumps(launches)}; "
+        f"wall {t_batch * 1e3:.1f} ms [{card}]")
+    del imgs4, serial, piped, batch
+
+    # (d) Traffic that repeats no key: six u8 crops of six sizes, each once,
+    # eager and from the cache (every call a first call: nothing captured),
+    # then the same six twice more (captures, then replays).
+    sizes = ((768, 1024), (720, 1280), (1024, 1536), (1080, 1920), (1536, 2048), (1440, 2560))
+    varied = [np.ascontiguousarray(img8_u8[:, :h, :w]) for h, w in sizes]
+
+    def encode_all():
+        return [TE.encode_image_device(im, DIST, config=cfg) for im in varied]
+
+    with PR.eager():
+        want, t_eager = timed(encode_all)
+    PR.clear_programs()
+    passes = {}
+    for call in ("first", "capture", "replay"):
+        before = PR.stats()
+        got, passes[call] = timed(encode_all)
+        c = {k: PR.stats()[k] - before[k] for k in calls}
+        if got != want or (call == "first" and c["captures"]):
+            fail(f"graphs: six sizes ({call}): bytes differ from eager, or {json.dumps(c)}")
+        passes[call] = [round(passes[call] * 1e3, 1), c]
+    log(f"graphs: six u8 crops of six sizes {[f'{w}x{h}' for h, w in sizes]}, bytes equal to "
+        f"eager in every pass: walls of the six (ms, host clock, with first calls/captures/"
+        f"replays) eager {t_eager * 1e3:.1f}, first calls {json.dumps(passes['first'])}, "
+        f"captures {json.dumps(passes['capture'])}, replays {json.dumps(passes['replay'])} "
+        f"[{card}]")
+    del varied
+
+    # (e) Eager against replay: the programs' device ms and host queueing
+    # (encode_report), the e2e walls, the device-resident A+B and its busy
+    # share; each key's first call ms, capture ms and pool bytes.
+    _, rep = encode_report(img8, DIST, repeats=3, config=cfg)
+    fig = {}
+    for mode in ("eager", "graphs"):
+        ctx = PR.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            walls = {}
+            for upload, img in (("float16", img8), ("u8", img8_u8)):
+                for _ in range(2):  # warm: a first call, then a capture
+                    TE.encode_image_device(img, DIST)
+                walls[upload] = statistics.median(
+                    timed(lambda: TE.encode_image_device(img, DIST))[1] for _ in range(4))
+            job = TE.DeviceEncodeJob([img8_u8], DIST)
+            if job.result() != [data_u8]:
+                fail(f"graphs: the resident job ({mode}) differs from the u8 encode")
+
+            def once():
+                job._packed = False
+                job._start_a()
+                job.pack()
+                return job._small_sync()
+
+            resident = statistics.median(timed(once)[1] for _ in range(4))
+            share = busy_share(once)
+        fig[mode] = dict(e2e_f16_ms=round(walls["float16"] * 1e3, 2),
+                         e2e_u8_ms=round(walls["u8"] * 1e3, 2),
+                         resident_ms=round(resident * 1e3, 2),
+                         busy_share=None if share is None else round(share["busy_share"], 4))
+    queue = {mode: {k: src.get(k) for k in ("program_a_ms", "program_a_queue_ms",
+                                            "program_b_ms", "program_b_queue_ms",
+                                            "program_ms_are")}
+             for mode, src in (("eager", rep["eager"]), ("graphs", rep))}
+    log(f"graphs: photo8mp eager against replay (median of 4, host clock; program ms CUDA "
+        f"events, queue ms the host's time to queue one call): "
+        f"{json.dumps({m: {**fig[m], **queue[m]} for m in fig})} [{card}]")
+    keys = [k for k in PR.stats()["by_key"] if str(img8.shape[1]) in k["key"]
+            or "[135" in k["key"]]
+    log("graphs: photo8mp's program keys (the first call's host ms, capture ms and pool bytes "
+        "a capture, replays): " + json.dumps(
+            [{"key": k["key"], "first_call_ms": None if k["warm_ms"] is None
+              else round(k["warm_ms"], 1), "captures": k["captures"], "replays": k["replays"],
+              "capture_ms": [round(x, 1) for x in k["capture_ms"]],
+              "pool_bytes": k["pool_bytes"]} for k in keys]) + f" [{card}]")
+    st = PR.stats()
+    PR.clear_programs()
+    log(f"graphs: the cache held {st['programs']} programs, {st['pool_bytes']} pool bytes; "
+        f"{st['eager']} first calls, {st['captures']} captures, {st['replays']} replays, "
+        f"{st['evictions']} evictions; cleared; phase 4b took {time.time() - t_phase:.1f} s "
+        f"[{card}]")
 
 
 def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
@@ -1788,6 +2046,7 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     from jxl_tiny_tpu_torch import encoder as TE
     from jxl_tiny_tpu_torch.common import ImageDim
     from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
+    from jxl_tiny_tpu_torch.ops import programs as PR
     from jxl_tiny_tpu_torch.tools import bench_configs as BC
     from jxl_tiny_tpu_torch.tools import kernel_check as KC
     from jxl_tiny_tpu_torch.utils import debug_mode
@@ -1806,8 +2065,10 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
 
     def counted(label, fn):
         """fn() with each kernel's launches (counts set to 0 just before,
-        read just after) once a program."""
+        read just after) once a program; every program a replay of its
+        captured graph."""
         runs, restore = KC.count_programs(TE, progs)
+        before = PR.stats()
         reset_counts()
         try:
             out, wall = timed(fn)
@@ -1816,7 +2077,17 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
         launches = {k: wr.launches for k, wr in wrappers.items()}
         expect_launches(label, launches, runs["analyze_batch_packed"],
                         runs["pack_batch_sections"])
+        caps, reps = (PR.stats()[k] - before[k] for k in ("captures", "replays"))
+        if caps or reps != runs["analyze_batch_packed"] + runs["pack_batch_sections"]:
+            fail(f"{label}: {caps} captures and {reps} replays for programs {runs}")
+        runs["replays"] = reps
         return out, wall, launches, runs
+
+    def cleared(label):
+        st = PR.stats()
+        log(f"configs: {label}: {st['programs']} captured programs held {st['pool_bytes']} "
+            f"pool bytes; cleared [{card}]")
+        PR.clear_programs()
 
     def held(label, fn, want, launches, key, groups):
         """Every kernel call of fn() recorded, then held against its plain
@@ -1848,13 +2119,18 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     label = f"panorama {pan8.shape[2]}x{pan8.shape[1]} u8"
     if (dim.num_groups, dim.num_dc_groups) != (960, 16):
         fail(f"{label}: {dim.num_groups} groups in {dim.num_dc_groups} DC groups")
-    TE.encode_image_device(pan8, DIST)  # warm
+    PR.clear_programs()  # the pools below are the panorama's alone
+    for _ in range(2):  # warm: a first call, then the captures
+        TE.encode_image_device(pan8, DIST)
     torch.cuda.reset_peak_memory_stats()
     pan, wall, launches, runs = counted(label, lambda: TE.encode_image_device(pan8, DIST))
-    peak = torch.cuda.max_memory_allocated()
+    # A replay allocates nothing: its buffers stay reserved in the pools.
+    peak, pools = torch.cuda.max_memory_allocated(), PR.stats()["pool_bytes"]
+    cleared(label)  # before the recorded run, which keeps every kernel input alive
     held(label, lambda: TE.encode_image_device(pan8, DIST), pan, launches, "groups_960", 960)
-    if TE.encode_image_device(pan8, DIST, kernels=False) != pan:
-        fail(f"{label}: the kernels' encode differs from the plain versions'")
+    with PR.eager():
+        if TE.encode_image_device(pan8, DIST, kernels=False) != pan:
+            fail(f"{label}: the kernels' encode differs from the plain versions'")
     try:
         with debug_mode():
             dbg, t_dbg = timed(lambda: TE.encode_image_device(pan8, DIST))
@@ -1867,7 +2143,9 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     mp = pan8.shape[1] * pan8.shape[2] / 1e6
     log(f"configs: {label} ({mp:.2f} MP, {dim.num_groups} groups in {dim.num_dc_groups} DC "
         f"groups): {len(pan)} bytes, equal to the plain versions' encode; wall {wall:.3f} s "
-        f"({mp / wall:.2f} MP/s, one warm encode); max_memory_allocated {peak} B; programs "
+        f"({mp / wall:.2f} MP/s, after a first call and a capture); peak memory "
+        f"{peak + pools} B (the replay's max_memory_allocated {peak} B plus its programs' "
+        f"pools {pools} B); programs "
         f"{json.dumps(runs)}; launches {json.dumps(launches)} [{card}]")
     del pan8, pan
     torch.cuda.empty_cache()
@@ -1876,18 +2154,21 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     batch = BC.tiles(photo8)
     label = f"batch of {len(batch)} tiles {batch.shape[3]}x{batch.shape[2]} u8"
     singles = [TE.encode_image_device(t, DIST) for t in batch]
-    TE.encode_batch_device(batch, DIST)  # warm
+    for _ in range(2):  # warm: a first call, then the captures
+        TE.encode_batch_device(batch, DIST)
     got, wall, launches, runs = counted(label, lambda: TE.encode_batch_device(batch, DIST))
     if got != singles:
         fail(f"{label}: bytes differ from the single encodes")
+    cleared(label)
     held(label, lambda: TE.encode_batch_device(batch, DIST), singles, launches,
          "groups_1024", 1024)
-    if TE.encode_batch_device(batch, DIST, kernels=False) != singles:
-        fail(f"{label}: the plain versions' batch differs from the single encodes")
+    with PR.eager():
+        if TE.encode_batch_device(batch, DIST, kernels=False) != singles:
+            fail(f"{label}: the plain versions' batch differs from the single encodes")
     mp = batch.shape[0] * batch.shape[2] * batch.shape[3] / 1e6
     log(f"configs: {label} ({mp:.2f} MP, 1024 groups in {len(batch)} DC groups): "
         f"{sum(map(len, got))} bytes, each tile equal to its single encode and to the plain "
-        f"versions' batch; wall {wall:.3f} s ({mp / wall:.2f} MP/s, one warm batch); "
+        f"versions' batch; wall {wall:.3f} s ({mp / wall:.2f} MP/s, a replay); "
         f"programs {json.dumps(runs)}; launches {json.dumps(launches)} [{card}]")
     del batch, singles, got
     torch.cuda.empty_cache()
@@ -1895,9 +2176,16 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     # (c) The distance sweep's other two points on photo8mp.
     for d in (0.5, 2.0):
         k = TE.encode_image_device(img8, d)
-        if TE.encode_image_device(img8, d, kernels=False) != k:
-            fail(f"photo8mp d={d}: the kernels' encode differs from the plain versions'")
-        log(f"configs: photo8mp d={d}: {len(k)} bytes, equal to the plain versions' encode")
+        if any(TE.encode_image_device(img8, d) != k for _ in range(2)):
+            fail(f"photo8mp d={d}: the captured or replayed encode differs from the first "
+                 f"call's")
+        with PR.eager():
+            if TE.encode_image_device(img8, d, kernels=False) != k:
+                fail(f"photo8mp d={d}: the kernels' encode differs from the plain versions'")
+        log(f"configs: photo8mp d={d}: {len(k)} bytes as a first call, a capture and a "
+            f"replay, equal "
+            f"to the plain versions' encode")
+    cleared("photo8mp at d = 0.5 and 2.0")
     log(f"configs: phase 9 took {time.time() - t_phase:.1f} s")
 
 

@@ -16,17 +16,29 @@ to subtract (the root bench.py's device_compute_est_* and its note belong
 to the TPU's link).
 
 detail, every figure from this run: the end-to-end encodes with the float16
-upload and with u8 sRGB (one warm encode, then the median of 4; bytes and
+upload and with u8 sRGB (warm encodes, then the median of 4; bytes and
 sha256, each equal to the same encode through the plain versions,
 kernels=False); the device-resident times, min / max MP/s, peak device
-memory and busy share (utils/profiling.busy_share) of one repeat; the two
+memory and busy share (utils/profiling.busy_share) of one repeat, the peak
+as max_memory_allocated beside pool_bytes, the captured programs' pools (a
+replay allocates nothing: its buffers stay reserved in the pools); the two
 programs' device ms (utils/profiling.encode_report); one pipelined stream of
 photo8mp, its flips and its 180-degree turn through encode_images_device,
-and one encode_batch_device of eight 1024x1024 crops, each beside its
-serial encodes; the device (the card's name, power limit and count, as
-nvidia-smi gives them; "cpu" with --device cpu, which never carries a
-card's name); the baseline vs_baseline is taken against: 21.9 MP/s,
-cjxl_tiny on one CPU core (BASELINE.md), not a device figure.
+and one encode_batch_device of eight 1024x1024 crops after warm ones, each
+beside its serial encodes; the device (the card's name, power
+limit and count, as nvidia-smi gives them; "cpu" with --device cpu, which
+never carries a card's name); the baseline vs_baseline is taken against: 21.9 MP/s,
+cjxl_tiny on one CPU core (BASELINE.md), not a device figure. A warm-up
+is one call, or two where the programs replay (a key's first call runs
+eagerly, its second captures it).
+
+Every figure but the programs' is taken twice, marked: at the top of
+detail as an encode runs now (`programs_run_as`: "graph replays", the
+programs replayed from the compiled-program cache, ops/programs, where the
+card allows it; else "eager"), and under detail["eager"] with the programs
+run op by op (ops/programs.eager()). The headline value is the first.
+encode_report gives the programs' ms and host queueing both ways, each
+key's capture ms and the pools' bytes.
 
 Any mismatch (bytes against kernels=False, the stream's or the batch's
 against the serial encodes, the device-resident section sizes against the
@@ -48,6 +60,7 @@ import torch
 from .encoder import DeviceEncodeJob, encode_batch_device, encode_image_device, encode_images_device
 from .io.color import linear_to_srgb_u8
 from .io.pfm import read_pfm
+from .ops import programs
 from .transfer import resolve_device
 from .utils.profiling import busy_share, card_name, encode_report
 
@@ -124,10 +137,19 @@ def _sha(data):
     return hashlib.sha256(data).hexdigest()
 
 
+def _warm(fn, dev):
+    """fn() run once, or twice where the programs run from the compiled-
+    program cache (a key's first call runs eagerly, its second captures
+    it); returns the last result."""
+    for _ in range(2 if programs.graphs_enabled(dev) else 1):
+        out = fn()
+    return out
+
+
 def _e2e(img, distance, repeats, dev):
-    """One warm encode, then `repeats` timed ones; the bytes must equal the
-    plain versions' encode. Returns (bytes, detail)."""
-    data = encode_image_device(img, distance, device=dev)
+    """A warm encode (_warm), then `repeats` timed ones; the bytes must
+    equal the plain versions' encode. Returns (bytes, detail)."""
+    data = _warm(lambda: encode_image_device(img, distance, device=dev), dev)
     times = []
     for _ in range(repeats):
         again, t = _timed(lambda: encode_image_device(img, distance, device=dev), dev)
@@ -144,15 +166,12 @@ def _e2e(img, distance, repeats, dev):
                   "sha256": _sha(data), "equal_to_kernels_false": True}
 
 
-def measure(img, distance=1.0, repeats=REPEATS, device=None, crop=1024):
-    """The bench's JSON object (see the module docstring) for a [3, H, W]
-    linear float image; crop: the side of the batch's eight crops."""
-    dev = resolve_device(device)
+def _figures(img, distance, repeats, dev, crop):
+    """The bench's figures but the programs' ms, with the programs run as
+    the caller's context runs them: (median device-resident seconds,
+    {programs_run_as, e2e_f16, e2e_u8, device_resident, stream, batch})."""
     cuda = dev.type == "cuda"
-    h, w = img.shape[1:]
-    mp = h * w / 1e6
-    info = device_info(dev)
-
+    mp = img.shape[1] * img.shape[2] / 1e6
     data_f16, e2e_f16 = _e2e(img, distance, repeats, dev)
     u8 = linear_to_srgb_u8(img)
     data_u8, e2e_u8 = _e2e(u8, distance, repeats, dev)
@@ -181,11 +200,6 @@ def measure(img, distance=1.0, repeats=REPEATS, device=None, crop=1024):
         dev_times.append(t)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     share = busy_share(once) if cuda else None
-    med = statistics.median(dev_times)
-
-    _, rep = encode_report(img, distance, repeats=1, device=dev)
-    programs = {k: rep.get(k) for k in ("program_a_ms", "program_b_ms", "program_a_queue_ms",
-                                        "program_b_queue_ms", "program_ms_are")}
 
     imgs4 = stream_images(img)
     serial, t_serial = _timed(
@@ -197,12 +211,54 @@ def measure(img, distance=1.0, repeats=REPEATS, device=None, crop=1024):
     batch_imgs = crops(img, crop)
     singles, t_singles = _timed(
         lambda: [encode_image_device(c, distance, device=dev) for c in batch_imgs], dev)
-    encode_batch_device(batch_imgs, distance, device=dev)  # warm
+    _warm(lambda: encode_batch_device(batch_imgs, distance, device=dev), dev)
     batch, t_batch = _timed(lambda: encode_batch_device(batch_imgs, distance, device=dev), dev)
     if batch != singles:
         raise RuntimeError("bench: the batch differs from the single encodes")
     mp_batch = len(batch_imgs) * crop * crop / 1e6
+    med = statistics.median(dev_times)
+    return med, {
+        "programs_run_as": "graph replays" if programs.graphs_enabled(dev) else "eager",
+        "device_resident": {
+            "input": "u8 sRGB, uploaded once", "times_s": [round(t, 5) for t in dev_times],
+            "mps_min_max": [round(mp / max(dev_times), 3), round(mp / min(dev_times), 3)],
+            "bytes": len(data_u8), "section_sizes_equal": True,
+            "max_memory_allocated": peak,
+            # A replay allocates nothing: the captured programs' buffers
+            # live in their pools, reserved all along.
+            "pool_bytes": programs.stats()["pool_bytes"] if cuda else None,
+            "busy_share": None if share is None else {
+                k: share[k] for k in ("wall_ms", "busy_ms", "busy_share", "top")},
+        },
+        "e2e_f16": e2e_f16,
+        "e2e_u8": e2e_u8,
+        "stream": {"images": len(imgs4), "serial_s": round(t_serial, 5),
+                   "pipelined_s": round(t_piped, 5),
+                   "serial_mps": round(4 * mp / t_serial, 3),
+                   "pipelined_mps": round(4 * mp / t_piped, 3), "bytes_equal": True},
+        "batch": {"images": len(batch_imgs), "side": crop,
+                  "singles_s": round(t_singles, 5), "batch_s": round(t_batch, 5),
+                  "singles_mps": round(mp_batch / t_singles, 3),
+                  "batch_mps": round(mp_batch / t_batch, 3), "bytes_equal": True},
+    }
 
+
+def measure(img, distance=1.0, repeats=REPEATS, device=None, crop=1024):
+    """The bench's JSON object (see the module docstring) for a [3, H, W]
+    linear float image; crop: the side of the batch's eight crops."""
+    dev = resolve_device(device)
+    h, w = img.shape[1:]
+    mp = h * w / 1e6
+    info = device_info(dev)
+    med, figures = _figures(img, distance, repeats, dev, crop)
+    _, rep = encode_report(img, distance, repeats=1, device=dev)
+    names = ("program_a_ms", "program_b_ms", "program_a_queue_ms", "program_b_queue_ms",
+             "program_ms_are")
+    with programs.eager():
+        _, eager = _figures(img, distance, repeats, dev, crop)
+    eager["programs"] = {k: rep.get("eager", {}).get(k) for k in names}
+    if any(eager[k]["sha256"] != figures[k]["sha256"] for k in ("e2e_f16", "e2e_u8")):
+        raise RuntimeError("bench: the eager encodes differ from the graph replays'")
     size = f"{round(mp)}MP" if mp >= 1 else f"{w}x{h}"
     mps = mp / med
     return {
@@ -216,25 +272,10 @@ def measure(img, distance=1.0, repeats=REPEATS, device=None, crop=1024):
             "baseline": {"mps": BASELINE_MPS, "what": BASELINE_WHAT},
             "image": {"width": w, "height": h, "megapixels": round(mp, 4),
                       "distance": distance},
-            "device_resident": {
-                "input": "u8 sRGB, uploaded once", "times_s": [round(t, 5) for t in dev_times],
-                "mps_min_max": [round(mp / max(dev_times), 3), round(mp / min(dev_times), 3)],
-                "bytes": len(data_u8), "section_sizes_equal": True,
-                "max_memory_allocated": peak,
-                "busy_share": None if share is None else {
-                    k: share[k] for k in ("wall_ms", "busy_ms", "busy_share", "top")},
-            },
-            "e2e_f16": e2e_f16,
-            "e2e_u8": e2e_u8,
-            "programs": programs,
-            "stream": {"images": len(imgs4), "serial_s": round(t_serial, 5),
-                       "pipelined_s": round(t_piped, 5),
-                       "serial_mps": round(4 * mp / t_serial, 3),
-                       "pipelined_mps": round(4 * mp / t_piped, 3), "bytes_equal": True},
-            "batch": {"images": len(batch_imgs), "side": crop,
-                      "singles_s": round(t_singles, 5), "batch_s": round(t_batch, 5),
-                      "singles_mps": round(mp_batch / t_singles, 3),
-                      "batch_mps": round(mp_batch / t_batch, 3), "bytes_equal": True},
+            **figures,
+            "programs": {**{k: rep.get(k) for k in names},
+                         "keys": rep.get("programs"), "pool_bytes": rep.get("pool_bytes")},
+            "eager": eager,
         },
     }
 

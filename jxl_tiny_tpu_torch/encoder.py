@@ -30,6 +30,13 @@ One-pass static codes (optimize_code=False): A and B run as one program
 trained beforehand; the device picks each image's cheapest candidates and
 the host only assembles.
 
+Compiled programs (ops/programs, the counterpart of jax.jit): on the card,
+without a mesh and outside eager() and debug mode, each program runs from
+the compiled-program cache under its static key: the key's first call runs
+eagerly, the second captures it as a CUDA graph, and later calls replay it
+and get clones of its outputs. So the second encode of a shape captures
+its programs. A capacity retry runs another key.
+
 Queueing: neither program waits for the card while it is queued. Pixels go
 up from pinned memory on an upload stream that the compute stream waits
 for; every result the host reads (totals + histograms, section sizes,
@@ -71,6 +78,7 @@ from .errors import InvalidInputError
 from .ops.dc_kernels import analyze_pack_batch_static, pack_batch_sections
 from .ops.pack_kernels import VAR_FAN, ac_base64_map, sections_wcap, var_safe_words
 from .ops import pipeline_full as PF
+from .ops import programs
 from .ops.pipeline import analyze_batch_packed, group_valid_blocks
 from .parallel import sharding as SH
 from .ref import group_np as G
@@ -547,6 +555,10 @@ class DeviceEncodeJob:
     checks the token capacity, and result() reads the device's candidate
     picks.
 
+    On the card, without a mesh and outside eager() / debug mode, each
+    program runs from the compiled-program cache (ops/programs) under the
+    key of its inputs and static arguments.
+
     imgs: a sequence of [3, H, W] images of one shape and one type, float
     (linear sRGB, uploaded as upload_dtype) or uint8 (sRGB samples,
     linearized on the device). device: None for the CUDA card (raises
@@ -618,6 +630,17 @@ class DeviceEncodeJob:
         return dict(cfl=self.config.optimize_chroma_from_luma,
                     blocks=self.config.optimize_block_sizes)
 
+    # -- the compiled programs (ops/programs) --------------------------------
+
+    def _a_static(self, cap):
+        """Program A's static arguments (the JAX package's static_argnames),
+        kernels and the tables it reads (by identity: a captured program
+        keeps its tables alive)."""
+        d = self.distp
+        return dict(distance=d.distance, inv_scale=d.inv_scale, scale=d.scale,
+                    scale_dc=d.scale_dc, x_qm_mul=d.x_qm_mul, cap=cap,
+                    kernels=self.kernels, tables=id(self.tables), **self._tiers())
+
     def _run_a(self, cap):
         args = (self._up, self._yb, self._xb, self.distp)
         if self._axis == "groups":
@@ -628,8 +651,15 @@ class DeviceEncodeJob:
         if self._axis == "images":
             return SH.analyze_batch_packed_mesh(*args, self.mesh, cap, self.tables,
                                                 kernels=self.kernels, **self._tiers())
-        return analyze_batch_packed(*args, cap, self.tables, kernels=self.kernels,
-                                    **self._tiers())
+        yb, xb, distp, tables, kernels, tiers = (
+            self._yb, self._xb, self.distp, self.tables, self.kernels, self._tiers())
+
+        def program_a(images):
+            return analyze_batch_packed(images, yb, xb, distp, cap, tables, kernels=kernels,
+                                        **tiers)
+
+        return programs.run("analyze_batch_packed", program_a, (self._up,), self._a_static(cap),
+                            self.device)
 
     def _start_a(self):
         """Queue program A at the current cap and the copy of its totals
@@ -708,15 +738,26 @@ class DeviceEncodeJob:
                 self.out_b = SH.analyze_pack_batch_static_mesh(
                     *args, self.mesh, self.cap, self.tables, **tiers, **sizes)
             else:
-                self.out_b = analyze_pack_batch_static(*args, self.cap, self.tables,
-                                                       **tiers, **sizes)
+                consts, cap, tables = args[1:], self.cap, self.tables
+
+                def program_static(images):
+                    return analyze_pack_batch_static(images, *consts, cap, tables, **tiers,
+                                                     **sizes)
+
+                self.out_b = programs.run("analyze_pack_batch_static", program_static,
+                                          (self._up,), {**self._a_static(cap), **sizes},
+                                          self.device)
         else:
             args = (self._stream, self.out_a["totals"], self._d_ac,
                     self.out_a["dc_layout"], self._d_dc)
             if self.mesh is not None:
                 self.out_b = SH.pack_all_sections_mesh(*args, self.mesh, **sizes)
             else:
-                self.out_b = pack_batch_sections(*args, **sizes)
+                def program_b(*inputs):
+                    return pack_batch_sections(*inputs, **sizes)
+
+                self.out_b = programs.run("pack_batch_sections", program_b, args, sizes,
+                                          self.device)
         self._small = Fetch(self.out_b["small"])
         self._small_np = None
         self._sections = None

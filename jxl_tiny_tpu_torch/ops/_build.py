@@ -19,7 +19,14 @@ The checked build (CHECKED_FLAGS: -DJXL_CHECKED=1 -lineinfo, csrc/check.cuh)
 of the six encode sources tests every kernel access against its buffer's
 extent. `launch` takes it inside utils/debug.debug_mode(checked_kernels=True)
 and reads the fault record after each launch.
+
+`launch` also counts each launch on its kernel wrapper (`launches`), the
+one place that does; while a thread captures a program as a CUDA graph
+(ops/programs, `recording`), that thread's launches go to the capture's
+record instead, since a capture runs nothing on the card.
 """
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -27,6 +34,7 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 from ..utils import debug
@@ -53,6 +61,7 @@ FAULT_WORDS = 12  # check.cuh's JXL_FAULT_WORDS
 
 _lock = threading.Lock()
 _libs = {}
+_RECORD = contextvars.ContextVar("jxl_tiny_tpu_torch_capture_record", default=None)
 
 
 def _nvcc():
@@ -172,10 +181,28 @@ def checked_library(name, bind):
     return load(name, lambda lib: (bind(lib), _bind_fault(lib)), CHECKED_FLAGS)
 
 
-def launch(name, bind, entry, what, args, extents):
+@contextlib.contextmanager
+def recording():
+    """Inside the block this thread's launches are counted in the Counter
+    it yields ({wrapper: launches}), not on the wrappers: the block
+    captures a CUDA graph (ops/programs), whose replays add the record."""
+    token = _RECORD.set(Counter())
+    try:
+        yield _RECORD.get()
+    finally:
+        _RECORD.reset(token)
+
+
+def recording_active() -> bool:
+    """True while this thread captures (inside `recording`)."""
+    return _RECORD.get() is not None
+
+
+def launch(wrapper, name, bind, entry, what, args, extents):
     """Call launcher `entry` of csrc/<name>.cu with args (the stream
     last) and the extents of its buffers (elements, in the order of the
-    pointers); raise when the launch fails. Inside debug_mode(
+    pointers); raise when the launch fails, else count it on `wrapper`
+    (or in the capture's record, see `recording`). Inside debug_mode(
     checked_kernels=True) the library is the checked build (built at first
     use; a build that fails raises), and the fault record is read after the
     launch, which synchronizes: an out-of-bounds access raises IndexError
@@ -183,12 +210,17 @@ def launch(name, bind, entry, what, args, extents):
     the extent. Outside it nothing but the launch happens."""
     if not debug.checked_kernels():
         check(getattr(load(name, bind), entry)(*args, *extents), what)
-        return
-    lib = checked_library(name, bind)
-    check(getattr(lib, entry)(*args, *extents), what)
-    fault = take_fault(lib)
-    if fault is not None:
-        raise IndexError(fault_message(fault))
+    else:
+        lib = checked_library(name, bind)
+        check(getattr(lib, entry)(*args, *extents), what)
+        fault = take_fault(lib)
+        if fault is not None:
+            raise IndexError(fault_message(fault))
+    rec = _RECORD.get()
+    if rec is None:
+        wrapper.launches += 1
+    else:
+        rec[wrapper] += 1
 
 
 def check(rc: int, what: str):

@@ -208,11 +208,10 @@ class _AQ:
             torch.empty((g, 32, 32), dtype=torch.float32, device=xyb.device)
             for _ in range(3)
         )
-        launch("aq", _bind, "aq_launch", "aq_field",
+        launch(self, "aq", _bind, "aq_launch", "aq_field",
                (xyb.data_ptr(), val.data_ptr(), gamma.data_ptr(), mask.data_ptr(),
                 kvec.ctypes.data, g, int(color), stream_ptr(xyb)),
                [t.numel() for t in (xyb, val, gamma, mask)])
-        self.launches += 1
         return val, gamma, mask
 
 

@@ -74,15 +74,17 @@ def ac_base64_map():
 
 
 def compact_rows_plain(tok, cnt, start, cap):
-    """Plain torch version of the compact_rows kernel (same arguments)."""
+    """Plain torch version of the compact_rows kernel (same arguments).
+    Dropped lanes land in a spare column past the stream, which is cut off
+    (no boolean gather: nothing waits for the card, so a program on the
+    plain versions can be captured too)."""
     g, r, w = tok.shape
     lane = torch.arange(w, device=tok.device)
     p = start[..., None] + lane  # [G,R,W] stream positions
     m = (lane < cnt[..., None]) & (p < cap)
-    gi = torch.arange(g, device=tok.device)[:, None, None].expand(g, r, w)
-    out = torch.zeros((g, cap + W), dtype=torch.int32, device=tok.device)
-    out.index_put_((gi[m], p[m]), tok[m])
-    return out
+    out = torch.zeros((g, cap + W + 1), dtype=torch.int32, device=tok.device)
+    out.scatter_(1, torch.where(m, p, cap + W).reshape(g, -1), tok.reshape(g, -1))
+    return out[:, : cap + W].contiguous()
 
 
 def _bind_compact(lib):
@@ -113,10 +115,9 @@ class _CompactRows:
             raise ValueError("compact_rows: cap must be a multiple of 128")
         out = torch.empty((g, cap + W), dtype=torch.int32, device=tok.device)
         bufs = (tok, cnt, start, out)
-        launch("compact", _bind_compact, "compact_rows_launch", "compact_rows",
+        launch(self, "compact", _bind_compact, "compact_rows_launch", "compact_rows",
                (*(t.data_ptr() for t in bufs), g, r, cap, stream_ptr(tok)),
                [t.numel() for t in bufs])
-        self.launches += 1
         return out
 
 
@@ -393,10 +394,9 @@ class _BitpackVar:
         require(pos, torch.int32, (g, cap), "bitpack_groups_var pos")
         out = torch.empty((g, ow), dtype=torch.int32, device=data.device)
         bufs = (data, nbits, pos, out)
-        launch("bitpack", _bind_bitpack, "bitpack_launch", "bitpack_groups_var",
+        launch(self, "bitpack", _bind_bitpack, "bitpack_launch", "bitpack_groups_var",
                (*(t.data_ptr() for t in bufs), g, cap, ow, stream_ptr(data)),
                [t.numel() for t in bufs])
-        self.launches += 1
         return out
 
 
@@ -414,9 +414,10 @@ def copy_sections_plain(packed, nblk, offs, wcap):
     idx = torch.arange(ow, device=packed.device)[None, :]
     dst = offs[:, None] + idx
     m = (idx < nblk[:, None] * W) & (dst < wcap)
-    buf = torch.zeros((wcap,), dtype=torch.int32, device=packed.device)
-    buf[dst[m]] = packed[m]
-    return buf
+    # Dropped words land in a spare slot past the buffer (no boolean gather).
+    buf = torch.zeros((wcap + 1,), dtype=torch.int32, device=packed.device)
+    buf.scatter_(0, torch.where(m, dst, wcap).reshape(-1), packed.reshape(-1))
+    return buf[:wcap]
 
 
 class _CopySections:
@@ -443,10 +444,9 @@ class _CopySections:
             raise ValueError("copy_sections packed: expected 16-byte alignment")
         buf = torch.empty((wcap,), dtype=torch.int32, device=packed.device)
         bufs = (packed, nblk, offs, buf)
-        launch("compact", _bind_compact, "copy_sections_launch", "copy_sections",
+        launch(self, "compact", _bind_compact, "copy_sections_launch", "copy_sections",
                (*(t.data_ptr() for t in bufs), g, ow, wcap, stream_ptr(packed)),
                [t.numel() for t in bufs])
-        self.launches += 1
         return buf
 
 

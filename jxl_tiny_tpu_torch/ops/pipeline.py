@@ -21,7 +21,9 @@ card while the program is queued: the per-size group and DC-group
 geometry is made once (group_valid_blocks, dc_geometry), the u8
 linearization table once a device (_srgb_lut) and the constants live in
 `tables`, so the host can queue the next image's work while the card runs
-this one's.
+this one's, and the programs can be captured as CUDA graphs
+(ops/programs): the first call of a shape makes these constants, and they
+are never freed while a captured program may read them.
 """
 import functools
 
@@ -80,7 +82,7 @@ def extract_groups_device(image):
     return groups
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # never freed: captured programs read it
 def _group_valid_blocks(ysize, xsize, n_images, device):
     yb = [div_ceil(min(256, ysize - gy * 256), 8)
           for gy in range(div_ceil(ysize, 256)) for _ in range(div_ceil(xsize, 256))]
@@ -463,7 +465,7 @@ def analyze_batch_packed(images, yb_valid, xb_valid, distp, cap, tables,
     )
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # never freed: captured programs read it
 def _dc_geometry(ysize, xsize, n_images, device):
     geo = DK.dc_group_geometry(ysize, xsize)
     return tuple(

@@ -49,8 +49,11 @@ def quantize_cells_plain(coef8, coef_v, coef_h, strategy, raw_qf, fac_x, fac_b,
     c2 = s != C.DCT8
     sl = s[:, None, :, :, None]  # [G,1,32,32,1]
     a8 = torch.cat([coef8, torch.zeros_like(coef8)], dim=-1)
-    cv = coef_v.repeat_interleave(2, dim=2)  # [G,3,32,32,128]
-    chh = coef_h.repeat_interleave(2, dim=3)
+    # Each 16x8 / 8x16 coefficient set on both of its cells, [G,3,32,32,128]
+    # (expand + reshape: nothing copied from the host).
+    g = coef8.shape[0]
+    cv = coef_v[:, :, :, None].expand(g, 3, 16, 2, 32, 128).reshape(g, 3, 32, 32, 128)
+    chh = coef_h[:, :, :, :, None].expand(g, 3, 32, 16, 2, 128).reshape(g, 3, 32, 32, 128)
     coefs = torch.where(sl == C.DCT8, a8, torch.where(sl == C.DCT16X8, cv, chh))
 
     def tab(t, ch):  # [3,3,128] table -> per-cell [G,32,32,128]
@@ -196,11 +199,10 @@ class _Quantize:
         lastnz = torch.empty((g, 3, 32, 32), dtype=torch.int32, device=dev)
         bufs = (coef8, coef_v, coef_h, strategy, raw_qf, fac_x, fac_b, tables.qm_zz,
                 tables.thr_zz, tables.dqm_zz, tables.order_zz, ordered, nz, qdc, lastnz)
-        launch("quantize", _bind, "quantize_launch", "quantize_cells",
+        launch(self, "quantize", _bind, "quantize_launch", "quantize_cells",
                (*(t.data_ptr() for t in bufs), g, ctypes.addressof(params),
                 stream_ptr(coef8)),
                [t.numel() for t in bufs])
-        self.launches += 1
         return ordered, nz, qdc, lastnz
 
 

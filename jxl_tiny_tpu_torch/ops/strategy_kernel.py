@@ -147,11 +147,10 @@ class _Estimate:
         outs = tuple(
             torch.empty((g, 3, 2, r, c), dtype=f32, device=dev) for r, c, _ in fams
         )
-        launch("strategy", _bind, "strategy_launch", "estimate_partials",
+        launch(self, "strategy", _bind, "strategy_launch", "estimate_partials",
                (*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs), g,
                 float(nz_cost(slope)), stream_ptr(coef8)),
                [t.numel() for t in (*args, *outs)])
-        self.launches += 1
         return outs
 
 

@@ -87,10 +87,9 @@ class _Tokenize:
         require(meta, torch.int32, (n,), "tokenize meta")
         out = torch.empty((n, 128), dtype=torch.int32, device=x.device)
         bufs = (x, meta, tables.freq_tab, out)
-        launch("tokenize", _bind, "tokenize_launch", "tokenize_rows",
+        launch(self, "tokenize", _bind, "tokenize_launch", "tokenize_rows",
                (*(t.data_ptr() for t in bufs), n, tables.nnz_thresh0, stream_ptr(x)),
                [t.numel() for t in bufs])
-        self.launches += 1
         return out
 
 

@@ -188,8 +188,8 @@ def guard_lines(text, extent):
 
 
 def _captured(name, args):
-    """(library name, bind, entry, what, launcher args, extents) of the
-    launch wrapper `name` makes on args, which is not made, and the
+    """(wrapper, library name, bind, entry, what, launcher args, extents)
+    of the launch wrapper `name` makes on args, which is not made, and the
     outputs the wrapper allocated (kept alive with the pointers)."""
     wrappers, _ = covered_kernels()
     seen = []
@@ -210,7 +210,7 @@ def inject(name, args):
     docstring). Returns dict(fault, expected_lines, canary_intact,
     normal_after: mismatches of the next normal launch against the plain
     version, ok)."""
-    (lib_name, bind, entry, what, largs, extents), outs = _captured(name, args)
+    (_, lib_name, bind, entry, what, largs, extents), outs = _captured(name, args)
     i, extent_name = INJECT[name]
     n = extents[i]
     target = next(t for t in _outputs(outs) if t.data_ptr() == largs[i])

@@ -1,9 +1,11 @@
 """The kernel checks that chip_smoke.py and the mesh's rank functions
 (tools/multihost_dryrun.py) share: the on-path kernel wrappers and their
 plain versions, the exact comparison of their outputs, the recording of a
-run's kernel calls, and the count of the encoder's program runs with the
-launches they imply. Every kernel time is taken with
+run's kernel calls, the count of the encoder's program runs with the
+launches they imply, and the launches a profiler trace sees the card run. Every kernel time is taken with
 utils/profiling.device_time."""
+import re
+
 import torch
 
 
@@ -30,6 +32,35 @@ def on_path_kernels():
         "copy_sections": PK.copy_sections_plain,
     }
     return wrappers, plain
+
+
+# The CUDA kernel each on-path wrapper launches (csrc/*.cu), by the name a
+# torch.profiler trace gives it.
+KERNEL_SYMBOLS = {"aq_field": "aq_kernel", "estimate_partials": "strategy_kernel",
+                  "quantize_cells": "quantize_kernel", "tokenize_rows": "tokenize_kernel",
+                  "compact_rows": "compact_rows_kernel", "copy_sections": "copy_sections_kernel"}
+
+
+def traced_launches(fn):
+    """fn() under torch.profiler: (fn's result, {wrapper name: launches of
+    its kernel the card ran}), counted by kernel name in the trace, which
+    sees inside a replayed CUDA graph. Needs a card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    pats = {k: re.compile(rf"(?<![A-Za-z0-9_]){sym}(?=[(<]|$)")
+            for k, sym in KERNEL_SYMBOLS.items()}
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k, pat in pats.items():
+                if pat.search(e.key):
+                    counts[k] += e.count
+    return out, counts
 
 
 def max_abs_err(a, b):
@@ -65,7 +96,11 @@ def compare(outs_k, outs_p, nan_ok=False):
 
 def recorded(fn):
     """fn() with every on-path kernel wrapper's arguments recorded, call by
-    call: (fn's result, {kernel: [args, ...]}, {kernel: launches fn made})."""
+    call: (fn's result, {kernel: [args, ...]}, {kernel: launches fn made}).
+    fn runs inside ops/programs.eager(): a replayed program calls no
+    wrapper, so only an eager run shows each call's inputs."""
+    from ..ops import programs
+
     wrappers, _ = on_path_kernels()
     calls = {name: [] for name in wrappers}
     real = {}
@@ -80,7 +115,8 @@ def recorded(fn):
 
         cls.__call__ = recording_call
     try:
-        out = fn()
+        with programs.eager():
+            out = fn()
     finally:
         for cls, f in real.items():
             cls.__call__ = f
@@ -112,19 +148,31 @@ def hold_calls(calls, time_ms=None):
 def count_programs(module, names):
     """Wrap the program functions `names` of `module` (the encoder's, or
     parallel.sharding's, which the encoder calls through the module) to
-    count their runs: (runs {name: 0, ...}, restore())."""
+    count their runs on the card: (runs {name: 0, ...}, restore()). A run
+    is an eager call (a capture runs nothing and is not counted) or a
+    replay of the captured program of that name (ops/programs), which
+    restore() adds."""
+    from ..ops import programs
+
     runs = {n: 0 for n in names}
     real = {n: getattr(module, n) for n in names}
+    replays0 = dict(programs.replays())
 
     def wrap(n):
         def run(*args, **kwargs):
-            runs[n] += 1
+            if not programs.capturing():
+                runs[n] += 1
             return real[n](*args, **kwargs)
         return run
 
+    def restore():
+        for n, f in real.items():
+            setattr(module, n, f)
+            runs[n] += programs.replays()[n] - replays0.get(n, 0)
+
     for n in names:
         setattr(module, n, wrap(n))
-    return runs, lambda: [setattr(module, n, f) for n, f in real.items()]
+    return runs, restore
 
 
 def expected_launches(a_runs, b_runs):

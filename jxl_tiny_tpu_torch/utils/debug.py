@@ -31,7 +31,9 @@ wrappers run their plain versions, and the switch changes nothing.
 
 Both checks read a value back to the host after the stage or launch: they
 synchronize, which only debug mode allows (outside it the programs queue
-with no host sync, and no extra launch or read-back happens). The bytes of
+with no host sync, and no extra launch or read-back happens), and which no
+CUDA graph can capture: inside debug mode the programs run eagerly, and
+the captured programs are dropped on entry and on exit (ops/programs). The bytes of
 an encode inside debug mode equal those outside it. The plain torch
 versions on the card are an argument of the entry points,
 `encode_image_device(..., kernels=False)`; it combines with debug mode.
@@ -53,6 +55,13 @@ import torch
 
 _NAN_CHECKS = contextvars.ContextVar("jxl_tiny_tpu_torch_nan_checks", default=False)
 _CHECKED_KERNELS = contextvars.ContextVar("jxl_tiny_tpu_torch_checked_kernels", default=False)
+_ACTIVE = contextvars.ContextVar("jxl_tiny_tpu_torch_debug_mode", default=False)
+
+
+def active():
+    """True inside debug_mode(), whatever its switches: the encoder's
+    programs then run eagerly (ops/programs)."""
+    return _ACTIVE.get()
 
 
 def checked_kernels():
@@ -81,13 +90,22 @@ def nan_check(stage, *tensors):
 def debug_mode(nan_checks=True, checked_kernels=True):
     """Run the encodes inside the block with NaN checks and the kernels'
     checked builds (see the module docstring); each switch as given, both
-    restored on exit."""
-    tokens = (_NAN_CHECKS.set(bool(nan_checks)), _CHECKED_KERNELS.set(bool(checked_kernels)))
+    restored on exit. The programs run eagerly inside the block, and the
+    captured programs (ops/programs) are dropped on entry and on exit, as
+    the JAX debug mode drops its compiled executables: no graph captured
+    outside is replayed inside, and none captured inside would outlive it."""
+    from ..ops import programs
+
+    programs.clear_programs()
+    tokens = (_NAN_CHECKS.set(bool(nan_checks)), _CHECKED_KERNELS.set(bool(checked_kernels)),
+              _ACTIVE.set(True))
     try:
         yield
     finally:
+        _ACTIVE.reset(tokens[2])
         _CHECKED_KERNELS.reset(tokens[1])
         _NAN_CHECKS.reset(tokens[0])
+        programs.clear_programs()
 
 
 def main(argv=None):

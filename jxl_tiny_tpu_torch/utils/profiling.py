@@ -249,8 +249,10 @@ def card_name(index=0):
 
 
 def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
-    """Timed encode_image_device of one [3, H, W] image: one warm-up encode,
-    then `repeats` timed ones (host clock; each returns bytes, so each ends
+    """Timed encode_image_device of one [3, H, W] image: one warm-up encode
+    (two where the programs run from the compiled-program cache: the first
+    call of a key runs eagerly, the second captures it), then `repeats`
+    timed ones (host clock; each returns bytes, so each ends
     with its work done). Returns (bytes, report): megapixels, bytes, bpp,
     times_s, mps_best and device; on the card also, for DeviceEncodeJob's
     two programs at the final capacities, program_a_ms and program_b_ms
@@ -258,15 +260,24 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
     program_b_queue_ms (the host's time to queue one call), and
     program_ms_are, which says what the two ms are: "device time" where the
     spin outlasted the host's queueing, else "device span with host waits";
-    and card (name and power limit). The one-pass static tier runs one
-    program: it reports program_b_* alone. kw goes to encode_image_device
-    (upload_dtype, config, kernels, ...)."""
+    programs_run_as: "graph replays" where the programs run from the
+    compiled-program cache (ops/programs), else "eager"; `eager`: the same
+    five figures with the programs run op by op (ops/programs.eager());
+    `programs`: the record of each program key the timed encodes replayed
+    (its first call's ms, its captures and their ms, its pool bytes, its
+    replays) and pool_bytes, the bytes every captured program's pool holds
+    now; and card (name and power limit). The one-pass static tier runs one program: it reports
+    program_b_* alone. kw goes to encode_image_device (upload_dtype,
+    config, kernels, ...)."""
     from ..encoder import DeviceEncodeJob, encode_image_device
+    from ..ops import programs
     from ..transfer import resolve_device
 
     dev = resolve_device(device)
     mp = img.shape[1] * img.shape[2] / 1e6
-    data = encode_image_device(img, distance, device=dev, **kw)  # warm-up
+    for _ in range(2 if programs.graphs_enabled(dev) else 1):  # warm-up
+        data = encode_image_device(img, distance, device=dev, **kw)
+    replays0 = {e["key"]: e["replays"] for e in programs.stats()["by_key"]}
     times = []
     for _ in range(repeats):
         t = time.perf_counter()
@@ -287,13 +298,21 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
         progs = {"b": job._dispatch_b}
         if not job._static:
             progs = {"a": lambda: job._run_a(job.cap), **progs}
-        all_hidden = True
-        for k, fn in progs.items():
-            ms, hidden, queue_ms = device_span(fn, 3, 1)
-            rep[f"program_{k}_ms"] = round(ms, 4)
-            rep[f"program_{k}_queue_ms"] = round(queue_ms, 4)
-            all_hidden &= hidden
-        rep["program_ms_are"] = "device time" if all_hidden else "device span with host waits"
+        rep["programs_run_as"] = "graph replays" if programs.graphs_enabled(dev) else "eager"
+        rep["eager"] = {}
+        for out, mode in ((rep, contextlib.nullcontext()), (rep["eager"], programs.eager())):
+            all_hidden = True
+            with mode:
+                for k, fn in progs.items():
+                    ms, hidden, queue_ms = device_span(fn, 3, 1)
+                    out[f"program_{k}_ms"] = round(ms, 4)
+                    out[f"program_{k}_queue_ms"] = round(queue_ms, 4)
+                    all_hidden &= hidden
+            out["program_ms_are"] = ("device time" if all_hidden
+                                     else "device span with host waits")
+        st = programs.stats()
+        rep["programs"] = [e for e in st["by_key"] if e["replays"] > replays0.get(e["key"], 0)]
+        rep["pool_bytes"] = st["pool_bytes"]
         rep["card"] = card_name(dev.index or 0)
     return data, rep
 

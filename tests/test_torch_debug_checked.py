@@ -141,8 +141,13 @@ def test_launch_reads_the_fault_record_only_in_debug_mode(monkeypatch):
     """Outside debug mode a launch is the launcher's call alone; inside, the
     checked library is loaded and its record read after the launch: none
     passes, a fault raises IndexError with the kernel, line, block, thread,
-    index and extent."""
+    index and extent. Each launch that passes counts once on its wrapper."""
     seen, record = [], [0] * _build.FAULT_WORDS
+
+    class Wrapper:
+        launches = 0
+
+    w = Wrapper()
 
     class Lib:
         def entry(self, *args):
@@ -157,18 +162,21 @@ def test_launch_reads_the_fault_record_only_in_debug_mode(monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda name, bind, flags=None: (
         seen.append(("load", name, flags)), Lib())[1])
-    _build.launch("compact", None, "entry", "compact_rows", (1, 2), [30, 40])
+    _build.launch(w, "compact", None, "entry", "compact_rows", (1, 2), [30, 40])
     assert seen == [("load", "compact", None), ("entry", (1, 2, 30, 40))]
+    assert w.launches == 1
     seen.clear()
     with debug_mode():
-        _build.launch("compact", None, "entry", "compact_rows", (1, 2), [30, 40])
+        _build.launch(w, "compact", None, "entry", "compact_rows", (1, 2), [30, 40])
         assert seen == [("load", "compact", _build.CHECKED_FLAGS), ("entry", (1, 2, 30, 40)),
                         ("take",)]
+        assert w.launches == 2
         record[:] = [1, 6, 227, 9, 0, 0, 96, 0, 0, 4096, 4095, 3]
         with pytest.raises(IndexError, match=r"copy_sections: .*csrc/compact\.cu:227, block "
                            r"\(9, 0, 0\) thread \(96, 0, 0\): index 4096 outside extent 4095 "
                            r"\(3 faulting"):
-            _build.launch("compact", None, "entry", "copy_sections", (1, 2), [30, 40])
+            _build.launch(w, "compact", None, "entry", "copy_sections", (1, 2), [30, 40])
+        assert w.launches == 2  # the faulting launch is not counted
 
 
 @pytest.mark.parametrize("tier", ["default", "static"])
