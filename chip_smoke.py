@@ -1714,7 +1714,23 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
             fail("host-packed photo8mp: repeated encodes differ")
         walls.append(time.perf_counter() - t0)
     timer = StageTimer()
-    restores = [timer.wrap(m_, n_, sync, label) for label, (m_, n_, sync) in {
+
+    def timed(module, name, sync, label):
+        # module.<name> timed as the stage `label`; with sync, the clock
+        # stops after the card's work. Returns what puts it back.
+        real = getattr(module, name)
+
+        def call(*args, **kwargs):
+            with timer.stage(label):
+                out = real(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+            return out
+
+        setattr(module, name, call)
+        return lambda: setattr(module, name, real)
+
+    restores = [timed(m_, n_, sync, label) for label, (m_, n_, sync) in {
         "upload": (TE, "upload_pixels", True),
         "analysis": (PF, "analyze_image_fast", True),
         "stream download": (TE, "host_arrays", False),

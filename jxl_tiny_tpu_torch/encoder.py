@@ -85,6 +85,7 @@ from .ref import group_np as G
 from .ref import pipeline_np as P
 from .tables import canonical_device, device_tables, to_device
 from .transfer import Fetch, host_arrays, read_parts, resolve_device, upload_pixels
+from .utils.profiling import span
 
 # Below this pixel count a float16 upload is upgraded to float32: f16
 # mantissa noise tilts the adaptive-quant heuristics on very flat content
@@ -168,24 +169,21 @@ def assemble_codestream(groups, dim, distp, ac_ops=None, ac_histo=None,
             ac_histo = S.histogram_sections(ac_ops, C.NUM_AC_CONTEXTS)
         ac_code = build_entropy_code(ac_histo)
 
-    sections = []
-    w = BitWriter()
-    S.write_dc_global(w, distp, dim.num_dc_groups, dc_code)
-    sections.append(w)
+    with span("assembly.globals"):
+        dc_global, ac_global = BitWriter(), BitWriter()
+        S.write_dc_global(dc_global, distp, dim.num_dc_groups, dc_code)
+        S.write_ac_global(ac_global, dim.num_groups, ac_code)
     if dc_writers is None:
         dc_writers = [S.serialize_section(ops, dc_code) for ops in dc_ops]
-    sections.extend(dc_writers)
-    w = BitWriter()
-    S.write_ac_global(w, dim.num_groups, ac_code)
-    sections.append(w)
     if ac_writers is None:
         ac_writers = [S.serialize_section(ops, ac_code) for ops in ac_ops]
-    sections.extend(ac_writers)
     out = BitWriter()
-    S.write_file_header(out, dim.xsize, dim.ysize)
-    S.write_frame_header(out, distp.x_qm_scale, distp.epf_iters)
-    S.write_toc_and_sections(out, sections)
-    return out.to_bytes()
+    with span("assembly.toc"):
+        S.write_file_header(out, dim.xsize, dim.ysize)
+        S.write_frame_header(out, distp.x_qm_scale, distp.epf_iters)
+        S.write_toc_and_sections(out, [dc_global, *dc_writers, ac_global, *ac_writers])
+    with span("assembly.bytes"):
+        return out.to_bytes()
 
 
 def _build_dc_group(groups, dim: ImageDim, dgy, dgx):
@@ -477,26 +475,28 @@ class _SectionPlan:
         return max(_used_words(b, o) for b, o in zip(np.split(bits, self.shards),
                                                      np.split(offs, self.shards)))
 
-    def grow(self, small) -> bool:
-        """Apply the first rule that program B's section sizes break; True
-        when program B must run again with the grown sizes."""
+    def grow(self, small):
+        """Apply the first rule that program B's section sizes break and
+        return its name ("ow", "ow_dc", "compact_ac", "compact_dc"):
+        program B must run again with the grown sizes. None when the
+        sections fit."""
         ac_bits, ac_offs, dc_bits, dc_offs = self.split(small)[:4]
         margin = VAR_FAN + 1
         need_ac = (int(ac_bits.max(initial=0)) + 31) // 32
         if need_ac > var_safe_words(self.ow):
             self.ow = _next_bucket(_OW_BUCKETS, need_ac + margin)
-            return True
+            return "ow"
         need_dc = (int(dc_bits.max(initial=0)) + 31) // 32
         if need_dc > var_safe_words(self.ow_dc):
             self.ow_dc = _next_bucket(_OW_BUCKETS, need_dc + margin)
-            return True
+            return "ow_dc"
         if self.compact_ac and self._used_words(ac_bits, ac_offs) > self.wcap:
             self.compact_ac = False
-            return True
+            return "compact_ac"
         if self.compact_dc and self._used_words(dc_bits, dc_offs) > self.wcap_dc:
             self.compact_dc = False
-            return True
-        return False
+            return "compact_dc"
+        return None
 
     def read(self, out_b, small, after=None, mesh=None):
         """Both kinds of section words in one read -> (AC writers, DC
@@ -670,8 +670,9 @@ class DeviceEncodeJob:
         self._totals_hists = Fetch(torch.cat([t, h.reshape(-1)]))
 
     def _read_totals_hists(self):
-        both = self._totals_hists.numpy()
-        return both[: self.plan.ng], both[self.plan.ng:].reshape(-1, 2, 64, 64)
+        with span("codes.read"):
+            both = self._totals_hists.numpy()
+            return both[: self.plan.ng], both[self.plan.ng:].reshape(-1, 2, 64, 64)
 
     def ready_for_pack(self) -> bool:
         """True when pack() would not wait for the card: program A's totals
@@ -702,22 +703,25 @@ class DeviceEncodeJob:
             return
         totals, hists = self._read_totals_hists()
         if not self._cap_fits(totals):
-            self._start_a()
-            totals, hists = self._read_totals_hists()
-        base_map = ac_base64_map()
-        d_ac = np.empty((self.plan.n, 9, 64), np.float32)
-        d_dc = np.empty((self.plan.n, 9, 64), np.float32)
-        self.full_codes, self.dc_codes = [], []
-        for k in range(self.plan.n):
-            code, d_ac[k] = build_ac_device_code(hists[k, 0], base_map)
-            self.full_codes.append(code)
-            code, d_dc[k] = build_dc_device_code(hists[k, 1][: C.NUM_DC_CONTEXTS])
-            self.dc_codes.append(code)
+            with span("program_a.cap_retry"):
+                self._start_a()
+                totals, hists = self._read_totals_hists()
+        with span("codes.build"):
+            base_map = ac_base64_map()
+            d_ac = np.empty((self.plan.n, 9, 64), np.float32)
+            d_dc = np.empty((self.plan.n, 9, 64), np.float32)
+            self.full_codes, self.dc_codes = [], []
+            for k in range(self.plan.n):
+                code, d_ac[k] = build_ac_device_code(hists[k, 0], base_map)
+                self.full_codes.append(code)
+                code, d_dc[k] = build_dc_device_code(hists[k, 1][: C.NUM_DC_CONTEXTS])
+                self.dc_codes.append(code)
         if self._axis == "images":  # this rank's images' tables
             d_ac, d_dc = d_ac[self._local], d_dc[self._local]
-        self._stream = self.out_a["stream"][:, : self.cap].contiguous()
-        self._d_ac = to_device(d_ac, self.device)
-        self._d_dc = to_device(d_dc, self.device)
+        with span("codes.upload"):
+            self._stream = self.out_a["stream"][:, : self.cap].contiguous()
+            self._d_ac = to_device(d_ac, self.device)
+            self._d_dc = to_device(d_dc, self.device)
         self._dispatch_b()
         self._packed = True
 
@@ -769,13 +773,22 @@ class DeviceEncodeJob:
             self._small_np = self._small.numpy()
         return self._small_np
 
+    def _grow(self):
+        """The rule that program B's section sizes break (the plan grown by
+        it), or None."""
+        small = self._small_sync()
+        with span("assembly.grow"):
+            return self.plan.grow(small)
+
     def _fetch_sections(self):
         if self._sections is not None:
             return
-        while self.plan.grow(self._small_sync()):
-            self._dispatch_b()
-        self._sections = self.plan.read(self.out_b, self._small_sync(),
-                                        self._small.after, self.mesh)
+        while (rule := self._grow()) is not None:
+            with span(f"program_b.regrow:{rule}"):
+                self._dispatch_b()
+        with span("assembly.sections"):
+            self._sections = self.plan.read(self.out_b, self._small_sync(),
+                                            self._small.after, self.mesh)
 
     def result(self):
         """The N codestreams, in the order of the images (on a mesh: on

@@ -37,6 +37,11 @@ replays, clearing). A capture uses CUDA's thread-local capture mode, so
 another thread's eager work on the card goes on beside it, and its
 launches count on the wrappers as usual.
 
+Spans (utils/profiling.span): a call opens programs:<name>.key (the key
+made), .eager (a key's first call), .capture, .copy_in, .replay (the graph
+launch) and .clone_out, each name starting with programs:<name>, so that a
+trace gives the device work queued under any of them to the program.
+
 Eager runs, by explicit rule (`graphs_enabled`): on the CPU; inside
 `eager()` (the counterpart of `jax.disable_jit()`: the programs run op by
 op on the card, which is how the tests and chip_smoke.py get the eager
@@ -49,6 +54,7 @@ op; nothing runs eagerly in its place.
 """
 import contextlib
 import contextvars
+import functools
 import os
 import threading
 import time
@@ -60,6 +66,7 @@ import torch
 
 from ..tables import canonical_device
 from ..utils import debug
+from ..utils.profiling import span
 from . import _build
 
 # The most of the card's memory the captured programs' pools may hold
@@ -186,6 +193,13 @@ class _Program:
         self.used = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _span_names(name):
+    """The span names of program `name`'s stages."""
+    return {stage: f"programs:{name}.{stage}"
+            for stage in ("key", "eager", "capture", "copy_in", "replay", "clone_out")}
+
+
 class ProgramCache:
     """The captured programs by key, the keys seen once, and what they did."""
 
@@ -211,24 +225,30 @@ class ProgramCache:
         it eagerly; the second captures it and replays; later calls copy the
         inputs into the graph's buffers and replay. Returns the outputs (on
         a replay, clones of the graph's)."""
+        names = _span_names(key.name)
         with self._lock:
             prog = self.programs.get(key)
             if prog is None and key not in self._seen:
                 st = self._stats(key)
                 t = time.perf_counter()
-                out = fn(*inputs)
+                with span(names["eager"]):
+                    out = fn(*inputs)
                 st["warm_ms"] = (time.perf_counter() - t) * 1e3
                 st["eager"] += 1
                 self._seen.add(key)
                 return out
             if prog is None:
-                prog = self._capture(key, fn, inputs)
+                with span(names["capture"]):
+                    prog = self._capture(key, fn, inputs)
             else:
-                for buf, t in zip(prog.inputs, inputs):
-                    buf.copy_(t)
-            self._replay(prog)
-            return {k: v.clone() if isinstance(v, torch.Tensor) else v
-                    for k, v in prog.outputs.items()}
+                with span(names["copy_in"]):
+                    for buf, t in zip(prog.inputs, inputs):
+                        buf.copy_(t)
+            with span(names["replay"]):
+                self._replay(prog)
+            with span(names["clone_out"]):
+                return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in prog.outputs.items()}
 
     def _capture(self, key, fn, inputs):
         bufs = [torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
@@ -307,7 +327,9 @@ def run(name, fn, inputs, static, device):
     process's cache where graphs_enabled(device), else eagerly."""
     if not graphs_enabled(device):
         return fn(*inputs)
-    return _cache.run(program_key(name, inputs, static, device), fn, inputs)
+    with span(_span_names(name)["key"]):
+        key = program_key(name, inputs, static, device)
+    return _cache.run(key, fn, inputs)
 
 
 def clear_programs():

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .tables import canonical_device
+from .utils.profiling import span
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float16): torch.float16,
                  np.dtype(np.float32): torch.float32}
@@ -46,16 +47,19 @@ def upload_pixels(imgs, dtype, device) -> torch.Tensor:
         arr = np.stack(imgs) if batch else imgs
         return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
     shape = (len(imgs),) + imgs[0].shape if batch else imgs.shape
-    host = torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True)
+    with span("ingest.pin"):
+        host = torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True)
     dst = host.numpy()
-    for k, img in enumerate(imgs if batch else [imgs]):
-        np.copyto(dst[k] if batch else dst, img, casting="same_kind")
-    upload = side_stream(canonical_device(device), "upload")
-    with torch.cuda.stream(upload):
-        up = host.to(device, non_blocking=True)
-    compute = torch.cuda.current_stream(device)
-    compute.wait_stream(upload)
-    up.record_stream(compute)
+    with span("ingest.convert"):
+        for k, img in enumerate(imgs if batch else [imgs]):
+            np.copyto(dst[k] if batch else dst, img, casting="same_kind")
+    with span("ingest.copy"):
+        upload = side_stream(canonical_device(device), "upload")
+        with torch.cuda.stream(upload):
+            up = host.to(device, non_blocking=True)
+        compute = torch.cuda.current_stream(device)
+        compute.wait_stream(upload)
+        up.record_stream(compute)
     return up
 
 
@@ -90,7 +94,8 @@ class Fetch:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with span("transfer.wait"):
+                self._event.synchronize()
         return self._host.numpy()
 
 

@@ -1,14 +1,39 @@
-"""Observability of the port: per-stage host-clock timers, the device time
-of queued work (CUDA events), torch.profiler traces with the card's busy
-share, and the megapixels/s report.
+"""Observability of the port: its spans (named host stages inside the
+encoder, on torch.profiler's clock), per-stage host-clock timers, the device
+time of queued work (CUDA events), torch.profiler traces with the card's
+busy share, and the megapixels/s report.
 
 Counterpart of the JAX package's utils/profiling.py (StageTimer,
 profile_trace, encode_report and `python -m ... input.pfm`). The port
 queues its work without waiting, so a host clock only measures device
-time when it stops after a synchronize: `StageTimer.stage(sync=...)` and
-`StageTimer.wrap(sync=True)` wait for the device work behind a value;
-`device_time` times the device alone; `profile_trace` replaces the XLA
-trace with a Chrome trace of torch.profiler.
+time when it stops after a synchronize: `StageTimer.stage(sync=...)` waits
+for the device work behind a value; `device_time` times the device alone;
+`profile_trace` replaces the XLA trace with a Chrome trace of
+torch.profiler.
+
+Spans: the encoder marks its stages with `span("<layer>.<stage>")` (a
+`:<label>` suffix where one stage has kinds, such as the rule that made
+program B run again). A span is off unless a torch.profiler is recording
+or a StageTimer collects (`with timer.collect():`); off, it is one flag
+check and a shared null context. On, it is a `record_function` range of
+the profiler's trace, on the clock of the device operations, so that each
+idle stretch of the card falls under the host stage the host was in, and
+the collecting timers add its host seconds and one call under its name.
+Spans mark stages, not the items of a loop, and their names hold no
+request's identity. The spans, by layer (the module that opens them):
+
+  ingest (transfer.upload_pixels, on the card): ingest.pin, ingest.convert,
+      ingest.copy; transfer.Fetch.numpy: transfer.wait
+  programs (ops/programs.run, ProgramCache.run): programs:<name>.key,
+      .eager, .capture, .copy_in, .replay, .clone_out
+  host codes (encoder.DeviceEncodeJob.pack): codes.read, codes.build,
+      codes.upload, program_a.cap_retry
+  program B's retries (DeviceEncodeJob._fetch_sections):
+      program_b.regrow:<rule>, the rule being ow, ow_dc, compact_ac or
+      compact_dc
+  assembly: assembly.grow (the section plan's checks), assembly.sections
+      (section words to writers), assembly.globals, assembly.toc,
+      assembly.bytes (encoder.assemble_codestream)
 
     python -m jxl_tiny_tpu_torch.utils.profiling input.pfm [-d D] [--trace] [--device cpu]
 
@@ -19,11 +44,51 @@ import contextlib
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import tempfile
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NULL_SPAN = contextlib.nullcontext()
+_collectors = []  # the StageTimers collecting now (StageTimer.collect)
+
+
+class _Span:
+    """An open span: a record_function range where a profiler records,
+    and its host seconds for the collecting timers."""
+
+    __slots__ = ("name", "range", "timers", "t0")
+
+    def __init__(self, name, profiled, timers):
+        self.name, self.timers = name, timers
+        self.range = torch.profiler.record_function(name) if profiled else None
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        for timer in self.timers:
+            timer._add(self.name, seconds)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name):
+    """The span `name` around a block (`with span("assembly.toc"): ...`):
+    the shared null context unless a torch.profiler records or a
+    StageTimer collects (see the module docstring)."""
+    profiled = _autograd_profiler._is_profiler_enabled
+    if not (profiled or _collectors):
+        return _NULL_SPAN
+    return _Span(name, profiled, tuple(_collectors))
 
 
 def _sync(x):
@@ -51,17 +116,22 @@ def _sync(x):
 
 
 class StageTimer:
-    """Accumulates named stage timings (host clock) across an encode.
+    """Accumulates named stage timings (host clock) and their calls.
 
         with timer.stage("analysis", sync=out): ...
-        restore = timer.wrap(module, "function", sync=True)
-    """
+        with timer.collect(): encode_image_device(img)   # the port's spans
+
+    Inside collect() the port's spans are on, and each adds its host
+    seconds and one call under its name; a span inside another counts in
+    both. Spans of every thread count while a timer collects."""
 
     def __init__(self):
         self.stages = {}
+        self.calls = {}
 
     def _add(self, name, seconds):
         self.stages[name] = self.stages.get(name, 0.0) + seconds
+        self.calls[name] = self.calls.get(name, 0) + 1
 
     @contextlib.contextmanager
     def stage(self, name, sync=None):
@@ -75,30 +145,21 @@ class StageTimer:
                 _sync(sync)
             self._add(name, time.perf_counter() - t)
 
-    def wrap(self, module, name, sync=False, label=None):
-        """Replace module.<name> by a function that adds each call's time to
-        stage `label` (default: name); with sync, the clock stops after the
-        device work behind the call's result. Returns restore(), which puts
-        the function back."""
-        real = getattr(module, name)
-        label = name if label is None else label
-
-        def timed(*args, **kwargs):
-            t = time.perf_counter()
-            out = real(*args, **kwargs)
-            if sync:
-                _sync(out)
-            self._add(label, time.perf_counter() - t)
-            return out
-
-        setattr(module, name, timed)
-        return lambda: setattr(module, name, real)
+    @contextlib.contextmanager
+    def collect(self):
+        """Turn the port's spans on for the block and gather them here."""
+        _collectors.append(self)
+        try:
+            yield self
+        finally:
+            _collectors.remove(self)
 
     def report(self):
         total = sum(self.stages.values())
         return {
             "total_s": round(total, 4),
-            "stages_ms": {k: round(v * 1e3, 1) for k, v in self.stages.items()},
+            "stages_ms": {k: round(v * 1e3, 3) for k, v in self.stages.items()},
+            "stage_calls": dict(self.calls),
         }
 
 
@@ -168,13 +229,24 @@ def device_time(fn, reps=5, warm=2):
     return device_span(fn, reps, warm)[0]
 
 
+def union_ms(intervals):
+    """The time (in the intervals' unit) that at least one of the
+    (start, end) intervals covers: overlapping streams count once."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def busy_share(fn):
     """Run fn once under torch.profiler (CPU and CUDA activities). Returns
     dict(wall_ms, busy_ms, busy_share, top: the six kernels with the most
     device time as (name, ms, calls)), or None where the profiler
-    records no device time. busy_ms sums the device-side entries (kernels,
-    copies, fills), so work that overlaps on two streams counts twice. A
-    measurement only: it never fails a run."""
+    records no device time. busy_ms is the union of the device-side
+    entries' intervals (kernels, copies, fills): work that overlaps on two
+    streams counts once. A measurement only: it never fails a run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,7 +263,8 @@ def busy_share(fn):
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    busy = union_ms((e.time_range.start / 1e3, e.time_range.end / 1e3) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
     return dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
                 top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]])
 
@@ -254,7 +327,9 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
     call of a key runs eagerly, the second captures it), then `repeats`
     timed ones (host clock; each returns bytes, so each ends
     with its work done). Returns (bytes, report): megapixels, bytes, bpp,
-    times_s, mps_best and device; on the card also, for DeviceEncodeJob's
+    times_s, mps_median (over the timed encodes), device, and stages_ms and
+    stage_calls: the port's spans in the timed encodes (StageTimer.collect;
+    host ms and calls by name, summed over the encodes); on the card also, for DeviceEncodeJob's
     two programs at the final capacities, program_a_ms and program_b_ms
     (device_span's ms: CUDA events), program_a_queue_ms and
     program_b_queue_ms (the host's time to queue one call), and
@@ -278,18 +353,22 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
     for _ in range(2 if programs.graphs_enabled(dev) else 1):  # warm-up
         data = encode_image_device(img, distance, device=dev, **kw)
     replays0 = {e["key"]: e["replays"] for e in programs.stats()["by_key"]}
-    times = []
-    for _ in range(repeats):
-        t = time.perf_counter()
-        data = encode_image_device(img, distance, device=dev, **kw)
-        times.append(time.perf_counter() - t)
+    times, timer = [], StageTimer()
+    with timer.collect():
+        for _ in range(repeats):
+            t = time.perf_counter()
+            data = encode_image_device(img, distance, device=dev, **kw)
+            times.append(time.perf_counter() - t)
+    stages = timer.report()
     rep = {
         "megapixels": round(mp, 3),
         "bytes": len(data),
         "bpp": round(8 * len(data) / (mp * 1e6), 4),
         "times_s": [round(t, 4) for t in times],
-        "mps_best": round(mp / min(times), 3),
+        "mps_median": round(mp / statistics.median(times), 3),
         "device": str(dev),
+        "stages_ms": stages["stages_ms"],
+        "stage_calls": stages["stage_calls"],
     }
     if dev.type == "cuda":
         job = DeviceEncodeJob([img], distance, device=dev, **kw)

@@ -20,12 +20,16 @@ fixed 8x8 blocks (EncoderConfig(optimize_block_sizes=False)).
     JAX package's
 (f) the sha256 digests chip_smoke.py holds the card's small-image encodes
     to are those of live JAX encodes and of the port's CPU encodes
+(g) the encoder's spans (utils/profiling.span) in a torch.profiler trace of
+    a CPU encode, nested as the stages run, and the names of program B's
+    four retry rules
 
 The ingest is compared exactly; the float stages after it (XYB, DCT) at
 rtol 1e-5 / atol 1e-6: XLA fuses the opsin mix and its cbrt is not
 correctly rounded, and XLA contracts a*b+c into FMA."""
 import hashlib
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -439,3 +443,78 @@ def test_cli(testdata, tmp_path):
                         (["--static-codes"], 1058)):
         assert cli.main(base + flags) == 0
         assert len(out.read_bytes()) == size, flags
+
+
+def test_encode_spans_in_a_cpu_profiler_trace(testdata, tmp_path):
+    """(g) Under a CPU torch.profiler a device-packed encode exports the
+    host codes' and assembly's ranges, one after another in the order the
+    stages run, a retry's reads nested in its retry; the card path's spans
+    (ingest, transfer.wait, programs:*) stay out. The bytes are the
+    untraced encode's. The gate reads torch's _is_profiler_enabled: a torch
+    without it would leave every span off."""
+    from torch.autograd import profiler as autograd_profiler
+
+    img = _load(testdata, "photo256")
+    want = TE.encode_image_device(img, 1.0, device="cpu")
+    assert autograd_profiler._is_profiler_enabled is False
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert autograd_profiler._is_profiler_enabled is True
+        # A cap and a word budget that the image outgrows: both retries run.
+        got = TE.encode_image_device(img, 1.0, device="cpu", cap=256, ow=256)
+    assert got == want
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                    for e in events if e.get("cat") == "user_annotation")
+    names = [r[2] for r in ranges]
+    assert not [n for n in names if n.startswith(("ingest.", "transfer.", "programs:"))]
+    for a in ranges:
+        for b in ranges:
+            if a is not b and a[0] <= b[0] < a[1]:
+                assert b[1] <= a[1], f"{b[2]} is not inside {a[2]}"
+    outer = [r for r in ranges if not any(o is not r and o[0] <= r[0] and r[1] <= o[1]
+                                          for o in ranges)]
+    assert [r[2] for r in outer] == [
+        "codes.read", "program_a.cap_retry", "codes.build", "codes.upload", "assembly.grow",
+        "program_b.regrow:ow", "assembly.grow", "assembly.sections", "assembly.globals",
+        "assembly.toc", "assembly.bytes"]
+    retry = outer[1]
+    assert [r[2] for r in ranges if retry[0] <= r[0] and r[1] <= retry[1] and r is not retry] \
+        == ["codes.read"]
+
+
+def _section_sizes(plan, ac_bits=100, ac_last_off=0, dc_bits=100, dc_last_off=0):
+    """A `small` array of program B's section sizes for `plan`: every
+    section of `ac_bits` / `dc_bits` bits, the last one of each kind at
+    word offset `ac_last_off` / `dc_last_off`."""
+    ac_offs = np.zeros(plan.ng, np.int64)
+    ac_offs[-1] = ac_last_off
+    dc_offs = np.zeros(plan.ngd, np.int64)
+    dc_offs[-1] = dc_last_off
+    return np.concatenate([np.full(plan.ng, ac_bits, np.int64), ac_offs,
+                           np.full(plan.ngd, dc_bits, np.int64), dc_offs,
+                           np.zeros(plan.ng + 2 * plan.n, np.int64)])
+
+
+@pytest.mark.parametrize("rule,sizes", [
+    (None, {}),
+    ("ow", dict(ac_bits=32 * 9000)),
+    ("ow_dc", dict(dc_bits=32 * 9000)),
+    ("compact_ac", dict(ac_last_off=70000)),
+    ("compact_dc", dict(dc_last_off=20000)),
+])
+def test_section_plan_grow_names_its_rule(rule, sizes):
+    """(g) _SectionPlan.grow returns the name of the rule that program B's
+    section sizes break (None where they fit), grows the plan by it, and
+    the grown plan holds the same sizes."""
+    plan = TE._SectionPlan(1, 4, 1, 8192)
+    small = _section_sizes(plan, **sizes)
+    assert (plan.wcap, plan.wcap_dc) == (65536, 16384)
+    assert plan.grow(small) == rule
+    assert (plan.ow, plan.ow_dc, plan.compact_ac, plan.compact_dc) == {
+        None: (8192, 8192, True, True), "ow": (32768, 8192, True, True),
+        "ow_dc": (8192, 32768, True, True), "compact_ac": (8192, 8192, False, True),
+        "compact_dc": (8192, 8192, True, False)}[rule]
+    assert plan.grow(small) is None

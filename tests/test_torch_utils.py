@@ -1,14 +1,16 @@
-"""The port's utilities (jxl_tiny_tpu_torch/utils/): profiling.py (StageTimer,
-device_time, busy_share, profile_trace, encode_report, the CLI) and debug.py
-(debug_mode), on the CPU against the JAX package's utils where both have
-them (tests/test_utils.py:20-48). Tests marked `gpu` run the card-only
-parts and skip here; the machine with the card runs them with
+"""The port's utilities (jxl_tiny_tpu_torch/utils/): profiling.py (span,
+StageTimer, device_time, busy_share, profile_trace, encode_report, the
+CLI) and debug.py (debug_mode), on the CPU against the JAX package's
+utils where both have them (tests/test_utils.py:20-48). Tests marked
+`gpu` run the card-only parts and skip here; the machine with the card
+runs them with
 
     python -m pytest tests/test_torch_utils.py -q -m gpu --noconftest
 """
 import json
 import os
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -78,21 +80,69 @@ def test_stage_timer(no_card_waits):
     assert rep["total_s"] >= 0 and all(v >= 0 for v in rep["stages_ms"].values())
 
 
-def test_stage_timer_wrap_restores(no_card_waits):
-    """wrap times every call of a module function as one stage, returns
-    its results, and restore() puts the function back."""
-    t = StageTimer()
-    real = PL.to_xyb
-    restore = t.wrap(PL, "to_xyb", sync=True, label="xyb")
-    try:
-        assert PL.to_xyb is not real
-        groups = torch.rand(1, 3, 256, 256, generator=torch.Generator().manual_seed(0))
-        assert torch.equal(PL.to_xyb(groups), real(groups))
-        PL.to_xyb(groups)
-    finally:
-        restore()
-    assert PL.to_xyb is real
-    assert list(t.report()["stages_ms"]) == ["xyb"]
+def test_span_off_is_the_shared_null_context():
+    """With no profiler recording and no timer collecting, span() is the
+    one shared null context, and an encode gives the bytes it gives with
+    the spans on (collected) and under a profiler."""
+    from torch.autograd import profiler as autograd_profiler
+
+    assert not autograd_profiler._is_profiler_enabled and not PR._collectors
+    assert PR.span("assembly.toc") is PR.span("codes.build") is PR._NULL_SPAN
+    img = _img()
+    off = TE.encode_image_device(img, 1.0, device="cpu")
+    with StageTimer().collect():
+        assert PR.span("assembly.toc") is not PR._NULL_SPAN
+        collected = TE.encode_image_device(img, 1.0, device="cpu")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiled = TE.encode_image_device(img, 1.0, device="cpu")
+    assert off == collected == profiled
+    assert PR.span("assembly.toc") is PR._NULL_SPAN
+
+
+def test_stage_timer_collects_spans_by_name(no_card_waits):
+    """collect() gathers each span's host ms and calls under its name, a
+    nested span in both; a span outside the block adds nothing, and two
+    timers collect side by side."""
+    outer, inner = StageTimer(), StageTimer()
+    with outer.collect():
+        for _ in range(3):
+            with PR.span("codes.build"):
+                with PR.span("codes.read"):
+                    time.sleep(0.002)
+        with inner.collect():
+            with PR.span("assembly.toc"):
+                pass
+    with PR.span("codes.build"):
+        pass
+    rep = outer.report()
+    assert rep["stage_calls"] == {"codes.build": 3, "codes.read": 3, "assembly.toc": 1}
+    assert rep["stages_ms"]["codes.build"] >= rep["stages_ms"]["codes.read"] >= 6.0
+    assert inner.report()["stage_calls"] == {"assembly.toc": 1}
+    assert not PR._collectors
+
+
+def test_busy_share_counts_overlapping_intervals_once():
+    """The device's busy time is the union of its intervals: two streams
+    that overlap count once, nested and touching ones too."""
+    assert PR.union_ms([(0.0, 2.0), (1.0, 3.0), (2.5, 4.0), (6.0, 7.0), (6.5, 6.6)]) == 5.0
+    assert PR.union_ms([(5.0, 6.0), (0.0, 1.0), (1.0, 2.0)]) == 3.0
+    assert PR.union_ms([(0.0, 10.0), (2.0, 3.0)]) == 10.0
+    assert PR.union_ms([]) == 0.0
+
+
+def test_encode_report_gives_the_median_and_the_stages():
+    """encode_report on the CPU: mps_median from the median of the timed
+    encodes, and the spans of those encodes (host codes and the four
+    assembly stages), one call of each an encode."""
+    img = _img()
+    data, rep = encode_report(img, 1.0, repeats=3, device="cpu", upload_dtype=None)
+    assert "mps_best" not in rep
+    median = sorted(rep["times_s"])[1]
+    assert rep["mps_median"] == pytest.approx(96 * 128 / 1e6 / median, abs=1e-3)
+    for name in ("codes.read", "codes.build", "codes.upload", "assembly.sections",
+                 "assembly.globals", "assembly.toc", "assembly.bytes"):
+        assert rep["stage_calls"][name] == 3 and rep["stages_ms"][name] >= 0, name
+    assert not any(k.startswith(("ingest.", "programs:")) for k in rep["stage_calls"])
 
 
 def test_encode_report_matches_jax():
@@ -104,7 +154,7 @@ def test_encode_report_matches_jax():
     data, rep = encode_report(img, 1.0, repeats=1, device="cpu", upload_dtype=None)
     want, _ = jax_encode_report(img, 1.0, repeats=1, upload_dtype=None)
     assert data == want
-    assert rep["bytes"] == len(data) > 0 and rep["mps_best"] > 0
+    assert rep["bytes"] == len(data) > 0 and rep["mps_median"] > 0
     assert rep["device"] == "cpu" and "card" not in rep and "program_a_ms" not in rep
     assert len(rep["times_s"]) == 1
     assert decode_jxl(data).shape == (3, 96, 128)
@@ -199,6 +249,14 @@ def test_encode_report_on_card(cuda):
     assert len(data) == 11680 and rep["program_a_ms"] > 0 and rep["program_b_ms"] > 0
     assert rep["program_a_queue_ms"] > 0 and rep["program_ms_are"] == "device time"
     assert rep["card"] and rep["device"].startswith("cuda")
+    # The card path's spans: the pinned upload, the waits, two replays.
+    calls = rep["stage_calls"]
+    for name in ("ingest.pin", "ingest.convert", "ingest.copy", "programs:analyze_batch_packed.key",
+                 "programs:analyze_batch_packed.copy_in", "programs:analyze_batch_packed.replay"):
+        assert calls[name] == 2, name
+    assert calls["programs:pack_batch_sections.replay"] >= 2
+    assert calls["transfer.wait"] >= 4
+    assert not any(k.endswith((".eager", ".capture")) for k in calls)
 
 
 @pytest.mark.gpu
