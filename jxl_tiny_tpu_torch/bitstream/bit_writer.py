@@ -64,13 +64,6 @@ class BitWriter:
             w.write(rem, int(raw[full]) & ((1 << rem) - 1))
         return w
 
-    def append_bytes_aligned(self, raw: bytes):
-        """Byte-aligned append of pre-packed bytes."""
-        assert self._bits_written % 8 == 0
-        arr = np.frombuffer(raw, np.uint8)
-        self._chunks.append((np.full(arr.shape, 8, np.uint8), arr.astype(np.uint64)))
-        self._bits_written += 8 * len(raw)
-
     def to_bytes(self) -> bytes:
         """The bits written so far, packed LSB first; with the native packer
         (cpp/) where g++ could build it, else with numpy (the same bytes)."""
@@ -82,6 +75,11 @@ class BitWriter:
         if native_packer() is not None:
             return pack_bits(nbits, values)
         return pack_bits_numpy(nbits, values)
+
+    def to_section(self):
+        """The bits written so far as a section of a codestream: (their
+        byte image, u8, packed once by to_bytes; the bit count)."""
+        return np.frombuffer(self.to_bytes(), np.uint8), self._bits_written
 
 
 def pack_bits_numpy(nbits: np.ndarray, values: np.ndarray) -> bytes:

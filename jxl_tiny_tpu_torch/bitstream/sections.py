@@ -403,26 +403,49 @@ def serialize_section(ops, code: EntropyCode) -> BitWriter:
     return w
 
 
-def write_toc_and_sections(writer, sections):
-    """enc_frame.cc:572-595,804-814. sections: list of BitWriter."""
-    if len(sections) == 4:
-        merged = BitWriter()
-        for s in sections:
-            merged.append_writer(s)
-        sections = [merged]
+# TOC entry classes (enc_frame.cc:578-595): a size below the first offset
+# goes in 10 bits, below the second less the first in 14, and so on.
+_TOC_WIDTHS = np.array([10, 14, 22, 30], np.int64)
+_TOC_OFFSETS = np.concatenate([[0], np.cumsum(1 << _TOC_WIDTHS)])
+
+
+def merge_sections(sections):
+    """The four sections of a one-group frame as the one section its single
+    TOC entry covers: their bits concatenated with no padding between them
+    (enc_frame.cc:572-577). sections: (byte image u8, bit count) each."""
+    merged = BitWriter()
+    for raw, nbits in sections:
+        merged.append_writer(BitWriter.from_packed(raw, nbits))
+    return merged.to_section()
+
+
+def write_toc(writer, sections):
+    """The TOC (enc_frame.cc:578-595) of `sections`, (byte image u8, bit
+    count) each, a one-group frame's merged first (merge_sections): no
+    permutation, each section's byte size, padding to a byte."""
+    sizes = np.array([(nbits + 7) >> 3 for _, nbits in sections], np.int64)
+    cls = np.searchsorted(_TOC_OFFSETS, sizes, side="right") - 1
+    if (cls >= len(_TOC_WIDTHS)).any():
+        raise ValueError("section too large")
     writer.write(1, 0)  # no permutation
     writer.zero_pad_to_byte()
-    for s in sections:
-        size = (s.bits_written + 7) // 8
-        offset = 0
-        for i, nb in enumerate((10, 14, 22, 30)):
-            if size < offset + (1 << nb):
-                writer.write(2, i)
-                writer.write(nb, size - offset)
-                break
-            offset += 1 << nb
-        else:
-            raise ValueError("section too large")
+    writer.write_arrays(np.stack([np.full_like(cls, 2), _TOC_WIDTHS[cls]], 1),
+                        np.stack([cls, sizes - _TOC_OFFSETS[cls]], 1))
     writer.zero_pad_to_byte()
-    for s in sections:
-        writer.append_bytes_aligned(s.to_bytes())
+
+
+def join_sections(head: bytes, sections) -> bytes:
+    """The codestream: `head` (headers and TOC, whole bytes) followed by
+    every section's bytes (enc_frame.cc:804-814), each section starting on
+    a byte; the bits of a section's last byte past its bit count are
+    cleared. sections: (byte image u8 holding at least the section's
+    bytes, bit count) each."""
+    nbits = np.array([n for _, n in sections], np.int64)
+    sizes = (nbits + 7) >> 3
+    buf = np.concatenate([np.frombuffer(head, np.uint8)]
+                         + [raw[:size] for (raw, _), size in zip(sections, sizes.tolist())])
+    rem = nbits & 7
+    part = rem > 0
+    last = len(head) + np.cumsum(sizes) - 1
+    buf[last[part]] &= ((1 << rem[part]) - 1).astype(np.uint8)
+    return buf.tobytes()

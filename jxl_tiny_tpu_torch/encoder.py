@@ -138,23 +138,29 @@ def _static_code_tables(device):
 
 
 def assemble_codestream(groups, dim, distp, ac_ops=None, ac_histo=None,
-                        ac_writers=None, ac_code=None, dc_code=None,
-                        dc_writers=None) -> bytes:
+                        ac_sections=None, ac_code=None, dc_code=None,
+                        dc_sections=None) -> bytes:
     """Build the sections, optimize the entropy codes, assemble the
     codestream. groups: {(gy, gx): GroupResult} (None when both kinds of
     sections come packed).
 
     ac_ops: the AC sections' ops, built from groups' token arrays when
     None; ac_histo: their histogram, counted from ac_ops when None.
-    ac_writers / ac_code and dc_writers / dc_code: sections packed already
-    (one BitWriter a section, the device-packed path) and the codes they
-    were packed with; histograms and packing are skipped for those."""
+    ac_sections / ac_code and dc_sections / dc_code: sections packed
+    already (the device-packed path: a byte image, u8, and its bit count a
+    section) and the codes they were packed with; histograms and packing
+    are skipped for those.
+
+    Every section starts on a byte, so the codestream is the headers' and
+    the TOC's bytes followed by each section's bytes as they lie (the bits
+    past a section's end cleared); only a one-group frame's four sections
+    share one TOC entry and are merged at the bit level."""
     dc_ops = []
-    if dc_writers is None:
+    if dc_sections is None:
         for dgy in range(dim.ysize_dc_groups):
             for dgx in range(dim.xsize_dc_groups):
                 dc_ops.append(_build_dc_group(groups, dim, dgy, dgx))
-    if ac_ops is None and ac_writers is None:
+    if ac_ops is None and ac_sections is None:
         ac_ops = []
         for gy in range(dim.ysize_groups):
             for gx in range(dim.xsize_groups):
@@ -173,17 +179,23 @@ def assemble_codestream(groups, dim, distp, ac_ops=None, ac_histo=None,
         dc_global, ac_global = BitWriter(), BitWriter()
         S.write_dc_global(dc_global, distp, dim.num_dc_groups, dc_code)
         S.write_ac_global(ac_global, dim.num_groups, ac_code)
-    if dc_writers is None:
-        dc_writers = [S.serialize_section(ops, dc_code) for ops in dc_ops]
-    if ac_writers is None:
-        ac_writers = [S.serialize_section(ops, ac_code) for ops in ac_ops]
-    out = BitWriter()
+        dc_global, ac_global = dc_global.to_section(), ac_global.to_section()
+    if dc_sections is None:
+        dc_sections = [S.serialize_section(ops, dc_code).to_section() for ops in dc_ops]
+    if ac_sections is None:
+        ac_sections = [S.serialize_section(ops, ac_code).to_section() for ops in ac_ops]
+    sections = [dc_global, *dc_sections, ac_global, *ac_sections]
     with span("assembly.toc"):
-        S.write_file_header(out, dim.xsize, dim.ysize)
-        S.write_frame_header(out, distp.x_qm_scale, distp.epf_iters)
-        S.write_toc_and_sections(out, [dc_global, *dc_writers, ac_global, *ac_writers])
+        if len(sections) == 4:  # one group: one TOC entry
+            with span("assembly.merge"):
+                sections = [S.merge_sections(sections)]
+        head = BitWriter()
+        S.write_file_header(head, dim.xsize, dim.ysize)
+        S.write_frame_header(head, distp.x_qm_scale, distp.epf_iters)
+        S.write_toc(head, sections)
+        head = head.to_bytes()
     with span("assembly.bytes"):
-        return out.to_bytes()
+        return S.join_sections(head, sections)
 
 
 def _build_dc_group(groups, dim: ImageDim, dgy, dgx):
@@ -499,9 +511,10 @@ class _SectionPlan:
         return None
 
     def read(self, out_b, small, after=None, mesh=None):
-        """Both kinds of section words in one read -> (AC writers, DC
-        writers). after: the compute stream's event that program B's
-        outputs are complete at (the copies then do not wait for work
+        """Both kinds of section words in one read -> (AC sections, DC
+        sections), each a uint8 view of its words in the downloaded arrays
+        and its bit count. after: the compute stream's event that program
+        B's outputs are complete at (the copies then do not wait for work
         queued since). With a mesh, every rank's words are gathered to rank
         0 in one collective, and the other ranks get (None, None)."""
         ac_bits, ac_offs, dc_bits, dc_offs = self.split(small)[:4]
@@ -521,16 +534,15 @@ class _SectionPlan:
             return None, None
         out = []
         for words, (_, bits, offs, compact, _) in zip(hosts, kinds):
+            nw = ((bits + 31) // 32).tolist()
             if compact:  # [shards, dl]: section k lies in rank k // per's buffer
                 per = len(bits) // self.shards
-                rows = [words[k // per, offs[k]: offs[k] + (bits[k] + 31) // 32]
-                        for k in range(len(bits))]
+                rows = [words[k // per, o: o + n]
+                        for k, (o, n) in enumerate(zip(offs.tolist(), nw))]
             else:  # [shards, ng / shards, maxw]: one row a section
                 words = words.reshape(-1, words.shape[-1])
-                rows = [np.ascontiguousarray(words[k, : (int(bits[k]) + 31) // 32])
-                        for k in range(len(bits))]
-            out.append([BitWriter.from_packed(r.view(np.uint8), int(b))
-                        for r, b in zip(rows, bits)])
+                rows = [words[k, :n] for k, n in enumerate(nw)]
+            out.append([(r.view(np.uint8), b) for r, b in zip(rows, bits.tolist())])
         return out[0], out[1]
 
 
@@ -802,14 +814,14 @@ class DeviceEncodeJob:
             self.full_codes = [self._static_codes.ac_codes[k] for k in k_ac]
             self.dc_codes = [self._static_codes.dc_codes[k] for k in k_dc]
         self._fetch_sections()
-        ac_w, dc_w = self._sections
-        if ac_w is None:
+        ac_s, dc_s = self._sections
+        if ac_s is None:
             return None
         g, gd = self.dim.num_groups, self.dim.num_dc_groups
         return [
             assemble_codestream(
-                None, self.dim, self.distp, ac_writers=ac_w[k * g: (k + 1) * g],
-                ac_code=self.full_codes[k], dc_writers=dc_w[k * gd: (k + 1) * gd],
+                None, self.dim, self.distp, ac_sections=ac_s[k * g: (k + 1) * g],
+                ac_code=self.full_codes[k], dc_sections=dc_s[k * gd: (k + 1) * gd],
                 dc_code=self.dc_codes[k],
             )
             for k in range(self.n)

@@ -32,8 +32,11 @@ request's identity. The spans, by layer (the module that opens them):
       program_b.regrow:<rule>, the rule being ow, ow_dc, compact_ac or
       compact_dc
   assembly: assembly.grow (the section plan's checks), assembly.sections
-      (section words to writers), assembly.globals, assembly.toc,
-      assembly.bytes (encoder.assemble_codestream)
+      (section words read, a byte view a section), assembly.globals (their
+      bits and their one pack), assembly.toc (headers and TOC; inside it
+      assembly.merge, a one-group frame's four sections merged at the bit
+      level), assembly.bytes (the one copy of every section into the
+      codestream) (encoder.assemble_codestream)
 
     python -m jxl_tiny_tpu_torch.utils.profiling input.pfm [-d D] [--trace] [--device cpu]
 
