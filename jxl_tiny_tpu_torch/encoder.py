@@ -656,13 +656,15 @@ class DeviceEncodeJob:
     def _run_a(self, cap):
         args = (self._up, self._yb, self._xb, self.distp)
         if self._axis == "groups":
-            return SH.analyze_image_packed_mesh(
-                *args, self.mesh, cap, self.tables, ysize=self.dim.ysize,
-                xsize=self.dim.xsize, dc_exchange=self.dc_exchange, kernels=self.kernels,
-                **self._tiers())
+            with span("mesh:program_a"):
+                return SH.analyze_image_packed_mesh(
+                    *args, self.mesh, cap, self.tables, ysize=self.dim.ysize,
+                    xsize=self.dim.xsize, dc_exchange=self.dc_exchange,
+                    kernels=self.kernels, **self._tiers())
         if self._axis == "images":
-            return SH.analyze_batch_packed_mesh(*args, self.mesh, cap, self.tables,
-                                                kernels=self.kernels, **self._tiers())
+            with span("mesh:program_a"):
+                return SH.analyze_batch_packed_mesh(*args, self.mesh, cap, self.tables,
+                                                    kernels=self.kernels, **self._tiers())
         yb, xb, distp, tables, kernels, tiers = (
             self._yb, self._xb, self.distp, self.tables, self.kernels, self._tiers())
 
@@ -747,12 +749,15 @@ class DeviceEncodeJob:
                     self._ac_depths, self._dc_depths, self.distp)
             tiers = self._tiers()
             if self._axis == "groups":
-                self.out_b = SH.analyze_pack_static_mesh(
-                    *args, self.mesh, self.cap, self.tables, ysize=self.dim.ysize,
-                    xsize=self.dim.xsize, dc_exchange=self.dc_exchange, **tiers, **sizes)
+                with span("mesh:program_b"):
+                    self.out_b = SH.analyze_pack_static_mesh(
+                        *args, self.mesh, self.cap, self.tables, ysize=self.dim.ysize,
+                        xsize=self.dim.xsize, dc_exchange=self.dc_exchange, **tiers,
+                        **sizes)
             elif self._axis == "images":
-                self.out_b = SH.analyze_pack_batch_static_mesh(
-                    *args, self.mesh, self.cap, self.tables, **tiers, **sizes)
+                with span("mesh:program_b"):
+                    self.out_b = SH.analyze_pack_batch_static_mesh(
+                        *args, self.mesh, self.cap, self.tables, **tiers, **sizes)
             else:
                 consts, cap, tables = args[1:], self.cap, self.tables
 
@@ -767,7 +772,8 @@ class DeviceEncodeJob:
             args = (self._stream, self.out_a["totals"], self._d_ac,
                     self.out_a["dc_layout"], self._d_dc)
             if self.mesh is not None:
-                self.out_b = SH.pack_all_sections_mesh(*args, self.mesh, **sizes)
+                with span("mesh:program_b"):
+                    self.out_b = SH.pack_all_sections_mesh(*args, self.mesh, **sizes)
             else:
                 def program_b(*inputs):
                     return pack_batch_sections(*inputs, **sizes)

@@ -23,6 +23,10 @@ AC groups (enc_frame.cc:536-570). The collectives (Mesh's methods) are:
 Every decision the host takes (the token-cap retry, the growth of ow and
 ow_dc, the compacted-buffer fallback) reads all-gathered or all-reduced
 values, so that all ranks take it together and queue the same collectives.
+
+Each method opens the span mesh.<method> (utils/profiling.span: off unless
+a profiler records or a StageTimer collects) and counts its calls and the
+bytes it moves over this rank's links (Mesh.stats()).
 """
 import functools
 import os
@@ -39,6 +43,7 @@ from ..ops import pipeline_full as PF
 from ..ops.pack_kernels import pack_ac_sections, sections_wcap
 from ..tables import canonical_device, device_tables, to_device
 from ..transfer import host_arrays, resolve_device
+from ..utils.profiling import span
 
 # The DC layout's padding entry (PAD << 16) as the int32 pattern the
 # port's layouts hold.
@@ -59,7 +64,14 @@ class Mesh:
     share one card (which NCCL refuses) use gloo on CUDA tensors, which
     gloo copies through host memory and so waits for the card: such a
     group is a correctness check, not a path that queues without host
-    syncs."""
+    syncs.
+
+    stats() holds, for each method, its calls and the bytes this rank
+    sends and receives in them, counted as the least any algorithm moves:
+    all_reduce of S bytes 2(n-1)S/n each way (rounded down), all_gather
+    (n-1) times the rank's part each way, all_to_all_single the rows to
+    and from the other ranks, gather to rank 0 the part sent (rank 0: n-1
+    parts received)."""
 
     def __init__(self, device, group=None):
         self.group = group
@@ -67,37 +79,69 @@ class Mesh:
         self.size = dist.get_world_size(group)
         self.device = torch.device(device)
         self._root = 0 if group is None else dist.get_global_rank(group, 0)
+        self._stats = {}
+
+    def _count(self, name, sent, received):
+        s = self._stats.setdefault(name, dict(calls=0, sent=0, received=0))
+        s["calls"] += 1
+        s["sent"] += sent
+        s["received"] += received
+
+    def stats(self, reset=False):
+        """{method: dict(calls, sent, received)} since the mesh was made or
+        last reset (reset=True returns the counts and zeroes them)."""
+        out = {k: dict(v) for k, v in self._stats.items()}
+        if reset:
+            self._stats.clear()
+        return out
 
     def psum(self, t):
         """Integer sum over the ranks, in int64 (exact, in any order)."""
-        x = t.to(torch.int64, copy=True).contiguous()
-        dist.all_reduce(x, group=self.group)
-        return x
+        with span("mesh.psum"):
+            x = t.to(torch.int64, copy=True).contiguous()
+            moved = 2 * (self.size - 1) * x.numel() * x.element_size() // self.size
+            self._count("psum", moved, moved)
+            dist.all_reduce(x, group=self.group)
+            return x
 
     def all_gather(self, t):
         """The ranks' tensors (one shape on every rank) concatenated on dim 0
         in rank order (jax.lax.all_gather(..., tiled=True))."""
-        x = t.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
-        return torch.cat(parts)
+        with span("mesh.all_gather"):
+            x = t.contiguous()
+            moved = (self.size - 1) * x.numel() * x.element_size()
+            self._count("all_gather", moved, moved)
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x, group=self.group)
+            return torch.cat(parts)
 
     def exchange(self, send, send_counts, recv_counts):
         """all_to_all_single on dim 0: send_counts[s] rows of `send` go to
         rank s, in rank order; recv_counts[q] rows come from rank q."""
-        x = send.contiguous()
-        out = x.new_empty((sum(recv_counts),) + tuple(x.shape[1:]))
-        dist.all_to_all_single(out, x, list(recv_counts), list(send_counts),
-                               group=self.group)
-        return out
+        with span("mesh.exchange"):
+            x = send.contiguous()
+            row = int(np.prod(x.shape[1:])) * x.element_size()
+            self._count("exchange", row * (sum(send_counts) - send_counts[self.rank]),
+                        row * (sum(recv_counts) - recv_counts[self.rank]))
+            out = x.new_empty((sum(recv_counts),) + tuple(x.shape[1:]))
+            dist.all_to_all_single(out, x, list(recv_counts), list(send_counts),
+                                   group=self.group)
+            return out
 
     def gather0(self, t):
         """The ranks' tensors (one shape) stacked [size, ...] on rank 0; None
         on the other ranks."""
-        x = t.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)] if self.rank == 0 else None
-        dist.gather(x, parts, dst=self._root, group=self.group)
-        return None if parts is None else torch.stack(parts)
+        with span("mesh.gather0"):
+            x = t.contiguous()
+            part = x.numel() * x.element_size()
+            if self.rank == 0:
+                self._count("gather0", 0, (self.size - 1) * part)
+                parts = [torch.empty_like(x) for _ in range(self.size)]
+            else:
+                self._count("gather0", part, 0)
+                parts = None
+            dist.gather(x, parts, dst=self._root, group=self.group)
+            return None if parts is None else torch.stack(parts)
 
 
 def make_mesh(device=None, group=None) -> Mesh:

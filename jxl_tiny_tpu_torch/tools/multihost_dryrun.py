@@ -203,6 +203,22 @@ def host_packed_cases(mesh, image, cases, out_dir):
     if mesh.rank == 0:
         np.save(os.path.join(out_dir, "host_hist.npy"), out["hist"])
 
+def collective_counts(mesh, image, out_dir):
+    """One encode_image_device_mesh of `image` (float32 upload, the gather
+    route) with Mesh.stats() reset before it and the port's spans
+    collected by a StageTimer: each rank writes counts.rank<r>.json with
+    the collectives' counts and the spans' calls."""
+    from ..encoder import encode_image_device_mesh
+    from ..utils.profiling import StageTimer
+
+    mesh.stats(reset=True)
+    timer = StageTimer()
+    with timer.collect():
+        encode_image_device_mesh(load_image(image), mesh=mesh, upload_dtype=None)
+    _write(out_dir, f"counts.rank{mesh.rank}.json",
+           dict(stats=mesh.stats(), spans=timer.calls))
+
+
 def program_outputs(mesh, image, out_dir, cap=32768, ow=8192):
     """Image-level program A and program B of the default tier on this
     rank's shard (image: [3, H, W] f32): each rank saves rank<r>.npz with

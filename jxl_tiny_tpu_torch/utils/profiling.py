@@ -28,6 +28,10 @@ request's identity. The spans, by layer (the module that opens them):
       .eager, .capture, .copy_in, .replay, .clone_out
   host codes (encoder.DeviceEncodeJob.pack): codes.read, codes.build,
       codes.upload, program_a.cap_retry
+  the mesh (DeviceEncodeJob on a parallel.sharding.Mesh): mesh:program_a,
+      mesh:program_b (the programs, run eagerly); inside them and in the
+      gather of the section words (parallel.sharding.Mesh): mesh.psum,
+      mesh.all_gather, mesh.exchange, mesh.gather0
   program B's retries (DeviceEncodeJob._fetch_sections):
       program_b.regrow:<rule>, the rule being ow, ow_dc, compact_ac or
       compact_dc

@@ -27,6 +27,11 @@ thread, with a 60 s group timeout and a launch deadline.
     encode_image_host_packed(mesh=)): every rank's bytes equal the one-rank
     encode, fast, full and with the cap retry, and the histogram summed
     over the ranks equals one device's
+(j) Mesh.stats() on every rank at 2 and 4 ranks equals the benchmark's
+    count of the collectives from the geometry alone
+    (benchmark/roofline/mesh_collectives.py) on the 220x2300 image (two
+    DC groups), and the mesh's spans open once a program and once a
+    collective call
 gpu: two ranks sharing the card over gloo, on a 1024x1024 crop of
     photo8mp: bytes equal to encode_image_device, and every kernel call of
     rank 0 equal to its plain version
@@ -130,7 +135,8 @@ def mesh_runs(tmp_path_factory):
                       for tier in ("default", "static")]
             yb = np.full(8, 32, np.int32)
             tasks = [(MD.encode_cases, (cases, str(out))),
-                     (MD.multihost_entry, (IMG, str(out)))]
+                     (MD.multihost_entry, (IMG, str(out))),
+                     (MD.collective_counts, (WIDE, str(out)))]
             if n == 2:
                 tasks.append((MD.host_packed_cases, (IMG, HOST_CASES, str(out))))
             if n == 4:
@@ -243,6 +249,40 @@ def test_group_level_entry_points_match_one_device(mesh_runs):
         r, nw = k // 2, (int(bits[k]) + 31) // 32
         local = ranks[r]["word_offs"][k]
         assert np.array_equal(ranks[r]["words"][local: local + nw], words[offs[k]: offs[k] + nw])
+
+
+def _roofline_counts():
+    import importlib.util
+
+    path = os.path.join(REPO, "benchmark", "roofline", "mesh_collectives.py")
+    spec = importlib.util.spec_from_file_location("mesh_collectives", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.counts
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_collective_bytes_match_the_mesh_counters(mesh_runs, n):
+    """Every rank's counts of one encode of WIDE (9 groups, 2 DC groups)
+    equal the benchmark's geometry-only count for that rank."""
+    import json
+
+    counts = _roofline_counts()
+    for r in range(n):
+        got = json.loads((mesh_runs(n) / f"counts.rank{r}.json").read_text())["stats"]
+        assert got == counts(9, 2, n, r), r
+        assert got["gather0"]["received" if r == 0 else "sent"] > 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_spans_open_once_a_call(mesh_runs, n):
+    import json
+
+    want = {"mesh:program_a": 1, "mesh:program_b": 1, "mesh.psum": 1, "mesh.all_gather": 3,
+            "mesh.gather0": 1}
+    for r in range(n):
+        spans = json.loads((mesh_runs(n) / f"counts.rank{r}.json").read_text())["spans"]
+        assert {k: v for k, v in spans.items() if k.startswith("mesh")} == want, r
 
 
 def test_failing_rank_ends_the_launch(tmp_path):
