@@ -33,30 +33,46 @@ def side_stream(device, purpose):
     return torch.cuda.Stream(device)
 
 
+def round_to_f16(t) -> torch.Tensor:
+    """A float32 tensor rounded to float16 on its own device: to nearest,
+    ties to even, overflow to +-inf, subnormals kept, as numpy's
+    `astype(np.float16)` rounds."""
+    return t.to(torch.float16)
+
+
 def upload_pixels(imgs, dtype, device) -> torch.Tensor:
     """Host pixels -> a tensor of `dtype` on `device`: one [3, H, W] array,
     or a list of same-shaped ones as [N, 3, H, W].
 
-    On the card each image is converted straight into one pinned buffer
-    (no stacked copy on the host), whose copy runs on the upload stream;
-    the compute stream waits for the copy's event, and the tensor is
-    recorded on the compute stream so that the caching allocator does not
-    reuse it while work queued there may still read it."""
+    On the card each image is copied straight into one pinned buffer (no
+    stacked copy on the host), whose copy runs on the upload stream; the
+    compute stream waits for the upload stream, and the tensor is recorded
+    on the compute stream so that the caching allocator does not reuse it
+    while work queued there may still read it. Float32 pixels that are to
+    travel as float16 go up as float32 and are rounded on the card, on the
+    upload stream (round_to_f16): numpy's float32 -> float16 cast is a
+    scalar loop on the host, a same-type copy is a memcpy."""
     batch = isinstance(imgs, list)
     if device.type != "cuda":
         arr = np.stack(imgs) if batch else imgs
         return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
+    srcs = imgs if batch else [imgs]
     shape = (len(imgs),) + imgs[0].shape if batch else imgs.shape
+    round_on_card = np.dtype(dtype) == np.float16 and all(i.dtype == np.float32 for i in srcs)
+    host_dtype = torch.float32 if round_on_card else _TORCH_DTYPES[np.dtype(dtype)]
     with span("ingest.pin"):
-        host = torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True)
+        host = torch.empty(shape, dtype=host_dtype, pin_memory=True)
     dst = host.numpy()
     with span("ingest.convert"):
-        for k, img in enumerate(imgs if batch else [imgs]):
+        for k, img in enumerate(srcs):
             np.copyto(dst[k] if batch else dst, img, casting="same_kind")
     with span("ingest.copy"):
         upload = side_stream(canonical_device(device), "upload")
         with torch.cuda.stream(upload):
             up = host.to(device, non_blocking=True)
+            if round_on_card:
+                with span("ingest.round"):
+                    up = round_to_f16(up)
         compute = torch.cuda.current_stream(device)
         compute.wait_stream(upload)
         up.record_stream(compute)

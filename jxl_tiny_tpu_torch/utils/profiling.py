@@ -23,7 +23,8 @@ Spans mark stages, not the items of a loop, and their names hold no
 request's identity. The spans, by layer (the module that opens them):
 
   ingest (transfer.upload_pixels, on the card): ingest.pin, ingest.convert,
-      ingest.copy; transfer.Fetch.numpy: transfer.wait
+      ingest.copy (inside it ingest.round, float32 pixels rounded to
+      float16 on the card); transfer.Fetch.numpy: transfer.wait
   programs (ops/programs.run, ProgramCache.run): programs:<name>.key,
       .eager, .capture, .copy_in, .replay, .clone_out
   host codes (encoder.DeviceEncodeJob.pack): codes.read, codes.build,
