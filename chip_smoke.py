@@ -142,27 +142,19 @@ Phases (any failure exits non-zero at once):
               the run: it could not attach to the card it was tried on
               (PERF.md); `python -m jxl_tiny_tpu_torch.utils.debug` is the
               program to run under it where it can
-  9. configs  the shapes of BASELINE.md's configs 3-5 (tools/bench_configs
-              builds the inputs): the 8192x7680 u8 panorama (960 groups in
-              16 DC groups) through encode_image_device, and 64 u8 tiles of
-              1024x1024 (1,024 groups) through encode_batch_device; each
-              kernel once a program, every kernel call held against its
-              plain version and timed at these shapes (one kernel's calls
-              at a time), the bytes equal to the kernels=False encodes, each
+  9. configs  the shapes of BASELINE.md's configs 3-5 (this module's tiles
+              and panorama build the inputs): the 8192x7680 u8 panorama (960
+              groups in 16 DC groups) through encode_image_device, and 64 u8
+              tiles of 1024x1024 (1,024 groups) through encode_batch_device;
+              each kernel once a program, every kernel call held against its
+              plain version and timed at these shapes (one kernel's calls at
+              a time), the bytes equal to the kernels=False encodes, each
               tile's bytes equal to its single encode; the panorama again
               inside debug_mode() (checked kernels), bytes equal and no
               fault; photo8mp at d = 0.5 and 2.0 equal to its kernels=False
               encodes; the counted runs are replays of captured programs
-              (the references, kernels=False, run eagerly), and the
-              captured programs are cleared after each part; the phase's
-              duration
- 10. bench    jxl_tiny_tpu_torch.bench.measure on photo8mp: its JSON line
-              (device-resident median of 4, the float16 and u8 end-to-end
-              encodes equal to kernels=False, program ms, busy share, peak
-              memory, the stream and the batch; each figure as graph
-              replays and, under detail["eager"], eager), printed on a line
-              of its own; the float16 and u8 bytes of both modes must equal
-              phase 4's
+              (the references, kernels=False, run eagerly), and the captured
+              programs are cleared after each part; the phase's duration
 The line before the last is the kernels' JSON record (rows 1-8 with a
 "checked" entry: the checked build's and the normal build's ms at phase
 8's calls); the last line is the result JSON. Imports nothing of JAX or of
@@ -243,6 +235,61 @@ STATIC_OVERHEAD = 1.06
 # tests/test_roundtrip.py); every pipeline's encode must decode above it
 # less 0.1 dB, the bar that test holds the JAX package's encodes to.
 GOLDEN_PSNR = {"photo256": 39.92, "odd131x77": 40.68, "gradient512": 38.96}
+
+# BASELINE.md's config 3 (64 tiles of 1024x1024 as one batch) and config 5
+# (the 8192x7680 panorama of photo8mp's flips): phase 9's inputs, built as
+# the JAX package's tools/bench_configs.py builds them (:172-181, 201-205).
+TILES, TILE, PANORAMA = 64, 1024, (8192, 7680)
+
+
+def load(name):
+    """testdata/<name>.pfm: a [3, H, W] linear float32 image."""
+    from jxl_tiny_tpu_torch.io.pfm import read_pfm
+
+    return read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+
+
+def tile_origins(h, w, n=TILES, size=TILE, seed=5):
+    """(y, x) of the n tiles, drawn as the JAX tool draws them (y, then x,
+    for each tile)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        y = rng.randint(0, h - size)
+        x = rng.randint(0, w - size)
+        out.append((y, x))
+    return out
+
+
+def tiles(img, n=TILES, size=TILE, seed=5):
+    """[n, 3, size, size]: config 3's tiles of a [3, H, W] image."""
+    return np.stack([img[:, y:y + size, x:x + size]
+                     for y, x in tile_origins(img.shape[1], img.shape[2], n, size, seed)])
+
+
+def panorama(img, h=PANORAMA[0], w=PANORAMA[1]):
+    """Config 5's panorama of a [3, H, W] image: the image over its vertical
+    flip, that beside its horizontal flip, that over its vertical flip, cut
+    to [3, h, w] (8192x7680 from photo8mp)."""
+    pan = np.concatenate([img, img[:, ::-1]], axis=1)
+    pan = np.concatenate([pan, pan[:, :, ::-1]], axis=2)
+    return np.ascontiguousarray(np.concatenate([pan, pan[:, ::-1]], axis=1)[:, :h, :w])
+
+
+def stream_images(img):
+    """The image, its two flips and its 180-degree turn: the stream of
+    phases 4b and 5."""
+    return [img, np.ascontiguousarray(img[:, :, ::-1]), np.ascontiguousarray(img[:, ::-1, :]),
+            np.ascontiguousarray(img[:, ::-1, ::-1])]
+
+
+def eight_crops(img, side=1024):
+    """Eight side x side crops: rows at 0 and side, columns at 0, side,
+    2 side and the right edge (the batch of phases 4b and 5)."""
+    w = img.shape[2]
+    return [np.ascontiguousarray(img[:, y:y + side, x:x + side])
+            for y in (0, side) for x in (0, side, 2 * side, w - side)]
+
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -342,7 +389,6 @@ def main(argv=None):
         build_ac_device_code, build_dc_device_code,
     )
     from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
-    from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import aq_kernel as AQ
     from jxl_tiny_tpu_torch.ops import dc_kernels as DK
     from jxl_tiny_tpu_torch.ops import pack_kernels as PK
@@ -361,7 +407,7 @@ def main(argv=None):
     cfg = EncoderConfig()
     cfg_8x8 = EncoderConfig(optimize_block_sizes=False)
     cfg_static = EncoderConfig(optimize_code=False)
-    img8 = read_pfm(os.path.join(HERE, "testdata", "photo8mp.pfm"))
+    img8 = load("photo8mp")
     h, w = img8.shape[1:]
     mp = h * w / 1e6
     distp = compute_distance_params(DIST)
@@ -919,7 +965,7 @@ def main(argv=None):
         for upload, digests, what in (("float", JAX_CPU_DIGESTS, "the JAX package's"),
                                       ("u8", U8_CPU_DIGESTS, "the port's")):
             for name, (size, digest) in digests[label].items():
-                img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+                img = load(name)
                 if upload == "u8":
                     img = linear_to_srgb_u8(img)
                 got = encode_image_device(img, DIST, config=config)
@@ -1002,8 +1048,7 @@ def main(argv=None):
         return out, time.perf_counter() - t
 
     # (b) Pipelined: four 8 MP images against their serial encodes.
-    imgs4 = [img8, np.ascontiguousarray(img8[:, :, ::-1]),
-             np.ascontiguousarray(img8[:, ::-1, :]), np.ascontiguousarray(img8[:, ::-1, ::-1])]
+    imgs4 = stream_images(img8)
     mp4 = 4 * mp
     serial, t_ser = timed(lambda: [encode_image_device(im, DIST, config=cfg) for im in imgs4])
     if serial[0] != data_k:
@@ -1060,8 +1105,7 @@ def main(argv=None):
         return held
 
     # (c) Batched: eight 1024x1024 crops, float and u8 sRGB, both tiers.
-    crops = [np.ascontiguousarray(img8[:, y:y + 1024, x:x + 1024])
-             for y in (0, 1024) for x in (0, 1024, 2048, 2816)]
+    crops = eight_crops(img8)
     crops_u8 = [linear_to_srgb_u8(c) for c in crops]
     progs = ("analyze_batch_packed", "pack_batch_sections", "analyze_pack_batch_static")
     for label, batch, config in (("float, default", crops, cfg),
@@ -1266,27 +1310,6 @@ def main(argv=None):
     configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expect_launches)
     torch.cuda.empty_cache()
 
-    # -- 10. bench: the port's headline bench (jxl_tiny_tpu_torch.bench) -----
-    from jxl_tiny_tpu_torch import bench as BN
-
-    t0 = time.time()
-    try:
-        line = BN.measure(BN.load_image(), DIST, device=dev)
-    except RuntimeError as e:
-        fail(f"bench: {e}")
-    for mode in (line["detail"], line["detail"]["eager"]):
-        f16, u8 = mode["e2e_f16"], mode["e2e_u8"]
-        if f16["sha256"] != hashlib.sha256(data_k).hexdigest():
-            fail(f"bench: the float16 encode ({f16['bytes']} B, {mode['programs_run_as']}) "
-                 f"differs from phase 4's")
-        if u8["sha256"] != sha_u8:
-            fail(f"bench: the u8 encode ({u8['bytes']} B, {mode['programs_run_as']}) differs "
-                 f"from phase 4's")
-    if line["detail"]["programs_run_as"] != "graph replays":
-        fail(f"bench: the default encodes ran as {line['detail']['programs_run_as']}")
-    log("bench: " + json.dumps(line))
-    log(f"bench: phase 10 took {time.time() - t0:.1f} s")
-
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1298,11 +1321,9 @@ def graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts):
     docstring. The reference encodes run inside programs.eager()."""
     import torch
 
-    from jxl_tiny_tpu_torch import bench as BN
     from jxl_tiny_tpu_torch import encoder as TE
     from jxl_tiny_tpu_torch.common import EncoderConfig
     from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
-    from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import programs as PR
     from jxl_tiny_tpu_torch.tools import kernel_check as KC
     from jxl_tiny_tpu_torch.utils.profiling import busy_share, encode_report
@@ -1397,7 +1418,7 @@ def graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts):
     for label, config in (("default", cfg), ("fixed 8x8", cfg_8x8)):
         for upload, digests in (("float", JAX_CPU_DIGESTS), ("u8", U8_CPU_DIGESTS)):
             for name, (size, digest) in digests[label].items():
-                img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+                img = load(name)
                 if upload == "u8":
                     img = linear_to_srgb_u8(img)
                 for call in ("first", "capture", "replay"):
@@ -1412,7 +1433,7 @@ def graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts):
         f"a replay: every sha256 equal to its digest ({n} encodes, {time.time() - t0:.1f} s)")
 
     # (c) The depth-3 stream and the batch of eight crops, as replays.
-    imgs4 = BN.stream_images(img8)
+    imgs4 = stream_images(img8)
     with PR.eager():
         serial = [TE.encode_image_device(im, DIST, config=cfg) for im in imgs4]
     if serial[0] != data_k:
@@ -1425,7 +1446,7 @@ def graphs_phase(img8, data_k, data_st, data_u8, card, wrappers, reset_counts):
         f"eager serial encodes ({c['replays']} replays, 0 captures); launches "
         f"{json.dumps(launches)}, programs {json.dumps(c['runs'])}; wall {t_piped * 1e3:.1f} "
         f"ms [{card}]")
-    batch = BN.crops(img8)
+    batch = eight_crops(img8)
     with PR.eager():
         want = TE.encode_batch_device(batch, DIST, config=cfg)
     first = [TE.encode_batch_device(batch, DIST, config=cfg) for _ in range(2)]
@@ -1528,7 +1549,6 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
     from jxl_tiny_tpu_torch.bitstream import sections as S
     from jxl_tiny_tpu_torch.common import compute_distance_params
     from jxl_tiny_tpu_torch.decode import decode_jxl
-    from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import pack_kernels as PK
     from jxl_tiny_tpu_torch.ops import pipeline as PL
     from jxl_tiny_tpu_torch.ops import pipeline_full as PF
@@ -1571,7 +1591,7 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
     # The cap retry on the card: at cap 1000 gradient512's analysis runs at
     # 1000, finds a group past it and runs again at FULL_CAP; the bytes are
     # the uncapped call's.
-    grad = read_pfm(os.path.join(HERE, "testdata", "gradient512.pfm"))
+    grad = load("gradient512")
     caps, fast = [], PF.analyze_image_fast
 
     def spy(image, yb_, xb_, distp_, cap, tables_, kernels=True):
@@ -1674,7 +1694,7 @@ def verify_phase(img8, data_k, rec, card, dev, tables, hold_calls, reset_counts,
     # (c) The port's decoder: three images through all three pipelines.
     t_dec = {}
     for name, ref_psnr in GOLDEN_PSNR.items():
-        img = read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+        img = load(name)
         streams = {"device": TE.encode_image_device(img, DIST), "host": host_encode(img),
                    "numpy": TE.encode_image(img, DIST)}
         pix, ps = {}, {}
@@ -1779,7 +1799,6 @@ def debug_phase(img8, data_k, data_st, var_call, rec, card, dev, wrappers, trace
 
     from jxl_tiny_tpu_torch import encoder as TE
     from jxl_tiny_tpu_torch.common import EncoderConfig
-    from jxl_tiny_tpu_torch.io.pfm import read_pfm
     from jxl_tiny_tpu_torch.ops import _build
     from jxl_tiny_tpu_torch.ops import probe_kernels as PBK
     from jxl_tiny_tpu_torch.tools import bench_probe as BP
@@ -1869,7 +1888,7 @@ def debug_phase(img8, data_k, data_st, var_call, rec, card, dev, wrappers, trace
     tiers = {"default": EncoderConfig(), "static": EncoderConfig(optimize_code=False)}
     cases = [(n, t) for n in ("photo256", "gradient512", "odd131x77", "photo8mp") for t in tiers]
     for name, tier in cases:
-        img = img8 if name == "photo8mp" else read_pfm(os.path.join(HERE, "testdata", f"{name}.pfm"))
+        img = img8 if name == "photo8mp" else load(name)
 
         def encode(kernels=True):
             return TE.encode_image_device(img, DIST, config=tiers[tier], kernels=kernels)
@@ -2063,7 +2082,6 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     from jxl_tiny_tpu_torch.common import ImageDim
     from jxl_tiny_tpu_torch.io.color import linear_to_srgb_u8
     from jxl_tiny_tpu_torch.ops import programs as PR
-    from jxl_tiny_tpu_torch.tools import bench_configs as BC
     from jxl_tiny_tpu_torch.tools import kernel_check as KC
     from jxl_tiny_tpu_torch.utils import debug_mode
     from jxl_tiny_tpu_torch.utils.profiling import device_time
@@ -2130,7 +2148,7 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
             f"{json.dumps({k: round(v, 4) for k, v in ms.items()})} [{card}]")
 
     # (a) The 63 MP panorama, u8 sRGB, one image.
-    pan8 = BC.panorama(photo8)
+    pan8 = panorama(photo8)
     dim = ImageDim(pan8.shape[2], pan8.shape[1])
     label = f"panorama {pan8.shape[2]}x{pan8.shape[1]} u8"
     if (dim.num_groups, dim.num_dc_groups) != (960, 16):
@@ -2167,7 +2185,7 @@ def configs_phase(img8, rec, card, dev, hold_calls, reset_counts, wrappers, expe
     torch.cuda.empty_cache()
 
     # (b) 64 tiles of 1024x1024, u8 sRGB, as one batch: 1,024 groups.
-    batch = BC.tiles(photo8)
+    batch = tiles(photo8)
     label = f"batch of {len(batch)} tiles {batch.shape[3]}x{batch.shape[2]} u8"
     singles = [TE.encode_image_device(t, DIST) for t in batch]
     for _ in range(2):  # warm: a first call, then the captures

@@ -5,7 +5,7 @@ port's verification decoder (jxl_tiny_tpu_torch.decode).
 
 Prints one line a pair: `<jxl>: psnr=<dB>` (3 decimals). Decoding is numpy
 on the host: about 40 s for an 8 MP image, minutes for the 63 MP panorama of
-tools/bench_configs.py's config 5. Counterpart of the JAX package's
+BASELINE.md's config 5. Counterpart of the JAX package's
 tools/psnr_file.py, with the same PSNR (both images clipped to [0, 1]).
 """
 import sys

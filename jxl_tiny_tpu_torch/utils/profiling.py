@@ -46,14 +46,12 @@ request's identity. The spans, by layer (the module that opens them):
     python -m jxl_tiny_tpu_torch.utils.profiling input.pfm [-d D] [--trace] [--device cpu]
 
 prints one JSON line (encode_report's report). Every number names its
-device: `device`, and on the card `card` (name and power limit).
+device: `device`, and on the card `card` (its name).
 """
 import contextlib
-import ctypes
 import json
 import os
 import statistics
-import subprocess
 import tempfile
 import time
 
@@ -298,37 +296,6 @@ def profile_trace(logdir=None):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def _nvml_power_limit_w(index):
-    """The card's enforced power limit (W) through NVML, or None."""
-    try:
-        nvml = ctypes.CDLL("libnvidia-ml.so.1")
-    except OSError:
-        return None
-    handle, mw = ctypes.c_void_p(), ctypes.c_uint()
-    if (nvml.nvmlInit_v2() != 0
-            or nvml.nvmlDeviceGetHandleByIndex_v2(index, ctypes.byref(handle)) != 0
-            or nvml.nvmlDeviceGetEnforcedPowerLimit(handle, ctypes.byref(mw)) != 0):
-        return None
-    return mw.value / 1000.0
-
-
-def card_name(index=0):
-    """The card's name and power limit as `nvidia-smi --query-gpu=name,
-    power.limit --format=csv,noheader` prints them; without nvidia-smi,
-    torch's device name and NVML's enforced limit in the same form."""
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-        if smi.returncode == 0 and smi.stdout.strip():
-            return smi.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.TimeoutExpired):
-        pass
-    limit = _nvml_power_limit_w(index)
-    return (f"{torch.cuda.get_device_name(index)}, "
-            + ("power limit unknown" if limit is None else f"{limit:.2f} W"))
-
-
 def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
     """Timed encode_image_device of one [3, H, W] image: one warm-up encode
     (two where the programs run from the compiled-program cache: the first
@@ -349,7 +316,7 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
     `programs`: the record of each program key the timed encodes replayed
     (its first call's ms, its captures and their ms, its pool bytes, its
     replays) and pool_bytes, the bytes every captured program's pool holds
-    now; and card (name and power limit). The one-pass static tier runs one program: it reports
+    now; and card (its name). The one-pass static tier runs one program: it reports
     program_b_* alone. kw goes to encode_image_device (upload_dtype,
     config, kernels, ...)."""
     from ..encoder import DeviceEncodeJob, encode_image_device
@@ -400,7 +367,7 @@ def encode_report(img, distance=1.0, repeats=3, device=None, **kw):
         st = programs.stats()
         rep["programs"] = [e for e in st["by_key"] if e["replays"] > replays0.get(e["key"], 0)]
         rep["pool_bytes"] = st["pool_bytes"]
-        rep["card"] = card_name(dev.index or 0)
+        rep["card"] = torch.cuda.get_device_name(dev)
     return data, rep
 
 

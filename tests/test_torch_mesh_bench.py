@@ -10,7 +10,8 @@ the CPU, its ranks over gloo:
 (c) the split of the cpus between the ranks: disjoint sets of one size
 (d) the readers of the mesh's metrics on a made-up trace, and on one
     without the port's mesh spans (nothing to read)
-(e) the panorama: the port's config-5 layout, distinct images a pool
+(e) the panorama: chip_smoke.py's config-5 layout and size, distinct
+    images a pool
 
 Rank 0 runs in a process of its own (as benchmark/run.py does), which
 starts the other ranks."""
@@ -183,11 +184,14 @@ def test_mesh_readers_on_a_made_up_trace():
 
 
 def test_panorama_is_config_5s_and_the_pool_distinct():
-    from jxl_tiny_tpu_torch.tools.bench_configs import panorama as port_panorama
+    from test_torch_encode import _chip_smoke
 
+    smoke = _chip_smoke()
     gen = spec.load_module("generators", "panorama")
     img = np.random.default_rng(3).random((3, 54, 96), np.float32)
-    assert np.array_equal(gen.panorama(img, 200, 192), port_panorama(img, 200, 192))
+    assert np.array_equal(gen.panorama(img, 200, 192), smoke.panorama(img, 200, 192))
+    with open(os.path.join(BENCH, "configs", "panorama64-d1.json")) as f:
+        assert json.load(f)["panorama"] == list(smoke.PANORAMA)
     with pytest.raises(ValueError):
         gen.panorama(img, 217, 192)
     pool = make_pool(REPO, dict(CONFIG, variants=dict(CONFIG["variants"], orientations=[
