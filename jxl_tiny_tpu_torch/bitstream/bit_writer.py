@@ -4,7 +4,8 @@ Same bit order as the reference's BitWriter (encoder/enc_bit_writer.cc:110-142):
 the first bit written lands in the LSB of the first byte.
 
 Values are buffered as (nbits, value) arrays and packed at the end, by the
-native packer (cpp/pack.cc) or, on a host without g++, by numpy.
+native packer (cpp/pack.cc) or, on a host without g++, by numpy. BitItems
+gathers many small items on the host for one BitWriter.write_arrays.
 """
 import numpy as np
 
@@ -80,6 +81,44 @@ class BitWriter:
         """The bits written so far as a section of a codestream: (their
         byte image, u8, packed once by to_bytes; the bit count)."""
         return np.frombuffer(self.to_bytes(), np.uint8), self._bits_written
+
+
+class BitItems:
+    """(nbits, value) items gathered for one BitWriter.write_arrays: a
+    single item is a list append, an array of items one chunk, kept in the
+    order written. It takes the writes of a BitWriter (write, write_arrays),
+    so the entropy-code writers (entropy.entropy_write) fill either."""
+
+    __slots__ = ("_nbits", "_values", "_chunks")
+
+    def __init__(self):
+        self._nbits, self._values, self._chunks = [], [], []
+
+    def write(self, nbits: int, value: int):
+        self._nbits.append(nbits)
+        self._values.append(value)
+
+    def write_arrays(self, nbits, values):
+        self._flush()
+        self._chunks.append((np.asarray(nbits, np.uint8).ravel(),
+                             np.asarray(values, np.uint64).ravel()))
+
+    def _flush(self):
+        if self._nbits:
+            self._chunks.append((np.array(self._nbits, np.uint8),
+                                 np.array(self._values, np.uint64)))
+            self._nbits, self._values = [], []
+
+    def arrays(self):
+        """Every item so far as (nbits u8, values u64), each value checked
+        against its width as BitWriter.write checks it."""
+        self._flush()
+        if not self._chunks:
+            return np.zeros(0, np.uint8), np.zeros(0, np.uint64)
+        nbits = np.concatenate([c[0] for c in self._chunks])
+        values = np.concatenate([c[1] for c in self._chunks])
+        assert (nbits <= 56).all() and not (values >> nbits.astype(np.uint64)).any()
+        return nbits, values
 
 
 def pack_bits_numpy(nbits: np.ndarray, values: np.ndarray) -> bytes:

@@ -14,15 +14,18 @@ reference (enc_frame.cc:765-802).
 Copy of the JAX package's bitstream/sections.py (reference: enc_file.cc,
 enc_frame.cc:287-595), numpy and the native packer (cpp/).
 """
+import functools
+
 import numpy as np
 
 from .. import constants as C
 from ..common import DistanceParams
 from ..cpp.build import histogram_tokens, native_packer, pack_tokens
 from ..entropy import build_entropy_code, write_entropy_code, write_tokens
-from ..entropy.entropy_write import EntropyCode
+from ..entropy.entropy_write import EntropyCode, write_context_map
 from ..entropy.uint_coder import uint_encode
-from .bit_writer import BitWriter
+from ..utils.profiling import span
+from .bit_writer import BitItems, BitWriter
 
 
 def pack_signed(v):
@@ -153,8 +156,6 @@ def _write_compact_block_ctx_map(writer):
         depths=np.zeros((0, C.ALPHABET_SIZE), np.uint8),
         bits=np.zeros((0, C.ALPHABET_SIZE), np.uint16),
     )
-    from ..entropy.entropy_write import write_context_map
-
     write_context_map(code, writer)
 
 
@@ -174,27 +175,46 @@ def _write_context_tree(writer, num_dc_groups):
     write_tokens(ctx, val, code, writer)
 
 
+@functools.lru_cache(maxsize=32)
+def dc_global_invariant(num_dc_groups):
+    """The DC global's bits past its quant scales up to its DC code, as
+    (nbits u8, values u64), read-only: the compact block context map, the
+    default colour correlation, the context tree with its code and tokens,
+    no LZ77. They depend on num_dc_groups alone, so they are built once a
+    value (span assembly.globals.prefix) and appended as they are."""
+    with span("assembly.globals.prefix"):
+        items = BitItems()
+        _write_compact_block_ctx_map(items)
+        items.write(1, 1)  # default DC color correlation map
+        _write_context_tree(items, num_dc_groups)
+        items.write(1, 0)  # no lz77
+        nbits, values = items.arrays()
+    nbits.flags.writeable = values.flags.writeable = False
+    return nbits, values
+
+
 def write_dc_global(writer, distp: DistanceParams, num_dc_groups, dc_code):
-    """enc_frame.cc:504-521."""
-    writer.write(1, 1)  # default dequant dc
-    write_quant_scales(writer, distp.global_scale, distp.quant_dc)
-    _write_compact_block_ctx_map(writer)
-    writer.write(1, 1)  # default DC color correlation map
-    _write_context_tree(writer, num_dc_groups)
-    writer.write(1, 0)  # no lz77
-    write_entropy_code(dc_code, writer)
+    """enc_frame.cc:504-521, reaching `writer` as one write_arrays."""
+    items = BitItems()
+    items.write(1, 1)  # default dequant dc
+    write_quant_scales(items, distp.global_scale, distp.quant_dc)
+    items.write_arrays(*dc_global_invariant(num_dc_groups))
+    write_entropy_code(dc_code, items)
+    writer.write_arrays(*items.arrays())
 
 
 def write_ac_global(writer, num_groups, ac_code):
-    """enc_frame.cc:523-534."""
-    writer.write(1, 1)  # all default quant matrices
+    """enc_frame.cc:523-534, reaching `writer` as one write_arrays."""
+    items = BitItems()
+    items.write(1, 1)  # all default quant matrices
     nb = ceil_log2_nonzero(num_groups)
     if nb:
-        writer.write(nb, 0)  # one histogram group
-    writer.write(2, 3)
-    writer.write(13, 0)  # all default coeff orders
-    writer.write(1, 0)  # no lz77
-    write_entropy_code(ac_code, writer)
+        items.write(nb, 0)  # one histogram group
+    items.write(2, 3)
+    items.write(13, 0)  # all default coeff orders
+    items.write(1, 0)  # no lz77
+    write_entropy_code(ac_code, items)
+    writer.write_arrays(*items.arrays())
 
 
 # ---------------------------------------------------------------------------

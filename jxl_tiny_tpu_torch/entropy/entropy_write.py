@@ -5,11 +5,13 @@ Byte-exact reproduction of the format written by the reference
 (encoder/enc_entropy_code.cc): hybrid-uint configs, alphabet sizes, simple
 trees, RLE tree-of-trees, context maps coded through a nested prefix code.
 These are bitstream-format obligations; a conforming decoder reads exactly
-this layout.
+this layout. The writers take a BitWriter or a BitItems (bitstream.bit_writer)
+and emit a tree's or a map's items as arrays, not one write a field.
 """
 import collections
 import dataclasses
 import functools
+import itertools
 import os
 
 import numpy as np
@@ -20,10 +22,13 @@ from .cluster import cluster_histograms
 from .uint_coder import uint_encode
 
 _CODE_LENGTH_CODES = 18
-_STORAGE_ORDER = [1, 2, 3, 4, 0, 5, 17, 6, 16, 7, 8, 9, 10, 11, 12, 13, 14, 15]
+_STORAGE_ORDER = np.array([1, 2, 3, 4, 0, 5, 17, 6, 16, 7, 8, 9, 10, 11, 12, 13, 14, 15])
 # Static Huffman code over code-length bit depths (enc_entropy_code.cc:22-37).
 _LEN_SYMBOLS = [0, 7, 3, 2, 1, 15]
 _LEN_NBITS = [2, 4, 3, 2, 2, 4]
+# Extra bits after a code-length code: 2 after 16 (repeat), 3 after 17 (zeros).
+_EXTRA_NBITS = np.zeros(_CODE_LENGTH_CODES, np.uint8)
+_EXTRA_NBITS[16], _EXTRA_NBITS[17] = 2, 3
 
 
 @dataclasses.dataclass
@@ -87,48 +92,33 @@ def write_tokens(ctx, values, code: EntropyCode, writer):
 
 
 def _write_huffman_tree_rle(depths, length):
-    """WriteHuffmanTree (enc_entropy_code.cc:232-275): returns (tree, extra)."""
-    tree = []
-    extra = []
-    previous_value = 8
-    new_length = length
-    while new_length > 0 and depths[new_length - 1] == 0:
-        new_length -= 1
+    """WriteHuffmanTree (enc_entropy_code.cc:232-275): returns (tree, extra).
+    Walks the runs of equal depths, not the symbols: a run that is not
+    run-length coded is its value repeated."""
+    d = np.asarray(depths[:length]).tolist()
+    while d and d[-1] == 0:
+        d.pop()
+    runs = [(value, len(list(group))) for value, group in itertools.groupby(d)]
 
-    use_rle_nz = False
-    use_rle_z = False
+    use_rle_nz = use_rle_z = False
     if length > 50:
-        total_z = total_nz = 0
-        count_z = count_nz = 1
-        i = 0
-        while i < new_length:
-            value = depths[i]
-            reps = 1
-            while i + reps < new_length and depths[i + reps] == value:
-                reps += 1
-            if reps >= 3 and value == 0:
-                total_z += reps
-                count_z += 1
-            if reps >= 4 and value != 0:
-                total_nz += reps
-                count_nz += 1
-            i += reps
-        use_rle_nz = total_nz > count_nz * 2
-        use_rle_z = total_z > count_z * 2
+        long_z = [r for value, r in runs if value == 0 and r >= 3]
+        long_nz = [r for value, r in runs if value != 0 and r >= 4]
+        use_rle_z = sum(long_z) > 2 * (1 + len(long_z))
+        use_rle_nz = sum(long_nz) > 2 * (1 + len(long_nz))
 
-    i = 0
-    while i < new_length:
-        value = int(depths[i])
-        reps = 1
-        if (value != 0 and use_rle_nz) or (value == 0 and use_rle_z):
-            while i + reps < new_length and depths[i + reps] == value:
-                reps += 1
-        if value == 0:
-            _rep_zeros(reps, tree, extra)
+    tree, extra = [], []
+    previous_value = 8
+    for value, r in runs:
+        if value == 0 and use_rle_z:
+            _rep_zeros(r, tree, extra)
+        elif value != 0 and use_rle_nz:
+            _rep_nonzero(previous_value, value, r, tree, extra)
         else:
-            _rep_nonzero(previous_value, value, reps, tree, extra)
+            tree += [value] * r
+            extra += [0] * r
+        if value:
             previous_value = value
-        i += reps
     return tree, extra
 
 
@@ -185,76 +175,63 @@ def _rep_zeros(repetitions, tree, extra):
 def _store_huffman_tree(depths, length, writer):
     """StoreHuffmanTree (enc_entropy_code.cc:326-376)."""
     tree, extra = _write_huffman_tree_rle(depths, length)
+    distinct = set(tree)
+    tree = np.array(tree, np.int64)
     histo = np.bincount(tree, minlength=_CODE_LENGTH_CODES).astype(np.uint32)
-
-    num_codes = 0
-    code = 0
-    for i in range(_CODE_LENGTH_CODES):
-        if histo[i]:
-            if num_codes == 0:
-                code = i
-                num_codes = 1
-            elif num_codes == 1:
-                num_codes = 2
-                break
 
     len_depths = create_huffman_depths(histo, 5)
     len_bits = depths_to_bits(len_depths)
 
     # Tree of trees (StoreHuffmanTreeOfHuffmanTreeToBitMask).
+    stored = len_depths[_STORAGE_ORDER].tolist()
     codes_to_store = _CODE_LENGTH_CODES
-    if num_codes > 1:
-        while codes_to_store > 0 and len_depths[_STORAGE_ORDER[codes_to_store - 1]] == 0:
+    if len(distinct) > 1:
+        while codes_to_store > 0 and stored[codes_to_store - 1] == 0:
             codes_to_store -= 1
     skip_some = 0
-    if len_depths[_STORAGE_ORDER[0]] == 0 and len_depths[_STORAGE_ORDER[1]] == 0:
-        skip_some = 2
-        if len_depths[_STORAGE_ORDER[2]] == 0:
-            skip_some = 3
+    if stored[0] == 0 and stored[1] == 0:
+        skip_some = 3 if stored[2] == 0 else 2
     writer.write(2, skip_some)
-    for i in range(skip_some, codes_to_store):
-        l = int(len_depths[_STORAGE_ORDER[i]])
+    for l in stored[skip_some:codes_to_store]:
         writer.write(_LEN_NBITS[l], _LEN_SYMBOLS[l])
 
-    if num_codes == 1:
-        len_depths[code] = 0
+    if len(distinct) == 1:
+        len_depths[tree[0]] = 0
 
-    for ix, eb in zip(tree, extra):
-        writer.write(int(len_depths[ix]), int(len_bits[ix]))
-        if ix == 16:
-            writer.write(2, eb)
-        elif ix == 17:
-            writer.write(3, eb)
+    # Each code-length code, then its extra bits (none but after 16, 17).
+    nbits = np.empty((tree.size, 2), np.uint8)
+    nbits[:, 0] = len_depths[tree]
+    nbits[:, 1] = _EXTRA_NBITS[tree]
+    values = np.empty((tree.size, 2), np.uint64)
+    values[:, 0] = len_bits[tree]
+    values[:, 1] = extra
+    writer.write_arrays(nbits, values)
 
 
 def _store_simple_tree(depths, symbols, num_symbols, max_bits, writer):
     """StoreSimpleHuffmanTree (enc_entropy_code.cc:85-116)."""
     writer.write(2, 1)
     writer.write(2, num_symbols - 1)
-    symbols = list(symbols[:num_symbols])
+    symbols = [int(s) for s in symbols[:num_symbols]]
     for i in range(num_symbols):
         for j in range(i + 1, num_symbols):
             if depths[symbols[j]] < depths[symbols[i]]:
                 symbols[i], symbols[j] = symbols[j], symbols[i]
     for s in symbols:
-        writer.write(max_bits, int(s))
+        writer.write(max_bits, s)
     if num_symbols == 4:
         writer.write(1, 1 if depths[symbols[0]] == 1 else 0)
 
 
 def _write_prefix_code(depths, bits, writer):
     """WritePrefixCode (enc_entropy_code.cc:390-423)."""
-    used = [i for i in range(ALPHABET_SIZE) if depths[i]]
-    count = len(used)
-    length = (used[-1] + 1) if used else 1
-    max_bits = 0
-    c = length - 1
-    while c:
-        c >>= 1
-        max_bits += 1
+    used = np.flatnonzero(depths)
+    count = used.size
+    length = int(used[-1]) + 1 if count else 1
+    max_bits = (length - 1).bit_length()
     if count <= 1:
         writer.write(4, 1)
-        writer.write(max_bits, used[0] if used else 0)
+        writer.write(max_bits, int(used[0]) if count else 0)
         return
     if count <= 4:
         _store_simple_tree(depths, used[:4], count, max_bits, writer)
@@ -262,12 +239,11 @@ def _write_prefix_code(depths, bits, writer):
         _store_huffman_tree(depths, length, writer)
 
 
-def _num_symbols(depths_row):
-    num = 1
-    for i in range(ALPHABET_SIZE):
-        if depths_row[i]:
-            num = i + 1
-    return num
+def _num_symbols(depths):
+    """[M] the alphabet size of each row of depths [M, 64]: one past its
+    last symbol with a code, 1 where none has."""
+    nz = np.asarray(depths) != 0
+    return np.where(nz.any(1), nz.shape[1] - np.argmax(nz[:, ::-1], axis=1), 1)
 
 
 def _store_varlen_u16(n, writer):
@@ -290,11 +266,11 @@ def write_prefix_codes(depths, bits, writer):
         writer.write(4, 4)  # split_exponent
         writer.write(3, 2)  # msb_in_token
         writer.write(2, 0)  # lsb_in_token
-    nsyms = [_num_symbols(depths[i]) for i in range(m)]
+    nsyms = _num_symbols(depths).tolist()
     for ns in nsyms:
         _store_varlen_u16(ns - 1, writer)
-    for i in range(m):
-        if nsyms[i] > 1:
+    for i, ns in enumerate(nsyms):
+        if ns > 1:
             _write_prefix_code(depths[i], bits[i], writer)
 
 
@@ -310,8 +286,7 @@ def write_context_map(code: EntropyCode, writer):
     values = code.context_map.astype(np.uint32)
     # One nested prefix code trained on the map values (no clustering).
     tok, _, _ = uint_encode(values)
-    histo = np.zeros((1, ALPHABET_SIZE), np.uint32)
-    np.add.at(histo[0], tok, 1)
+    histo = np.bincount(tok, minlength=ALPHABET_SIZE)[None]
     nested = build_entropy_code_from_cluster_histograms(histo)
     write_prefix_codes(nested.depths, nested.bits, writer)
     write_tokens(np.zeros(len(values), np.int64), values, nested, writer)

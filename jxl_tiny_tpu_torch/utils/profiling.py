@@ -38,7 +38,9 @@ request's identity. The spans, by layer (the module that opens them):
       compact_dc
   assembly: assembly.grow (the section plan's checks), assembly.sections
       (section words read, a byte view a section), assembly.globals (their
-      bits and their one pack), assembly.toc (headers and TOC; inside it
+      bits and their one pack; inside it assembly.globals.prefix, the DC
+      global's frame-invariant bits, built once a num_dc_groups),
+      assembly.toc (headers and TOC; inside it
       assembly.merge, a one-group frame's four sections merged at the bit
       level), assembly.bytes (the one copy of every section into the
       codestream) (encoder.assemble_codestream)
